@@ -1,0 +1,87 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled on first use into one shared library with
+a plain C interface, under ``build/torch_kernels/`` at the root of the
+checkout (listed in .gitignore). The file name carries a hash of the source
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded. Nothing here runs at import time: the CPU tests import every module
+of the port on a machine without nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc() -> str:
+    """nvcc of the toolkit PyTorch finds ($CUDA_HOME, PATH, /usr/local/cuda)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = os.path.join(CUDA_HOME or "", "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Sequence[str]) -> Dict[str, float]:
+    """Compiles every named source that has no library yet, one nvcc process
+    each, all started together. Returns seconds per built source; raises with
+    nvcc's output when one fails. nvcc's output, with ptxas' registers and
+    shared memory per kernel, is kept beside the library (``build_log``)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    seconds, failures = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from the build of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cu``, built first if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))
