@@ -1,18 +1,54 @@
-"""The source-free fused DirectInversion + P2P edit scan (port of
-``pnpinversion_tpu/sampling/p2p_forward.py::fused_direct_inversion_edit_srcfree``)."""
+"""P2P guidance sampling loops (port of ``pnpinversion_tpu/sampling/p2p_forward.py``:
+``guidance_forward`` and ``fused_direct_inversion_edit_srcfree``)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from pnpinversion_tpu_torch.control.base import BaseControl
+from pnpinversion_tpu_torch.control.base import NO_CONTROL, BaseControl
 from pnpinversion_tpu_torch.models.unet import UNet
 from pnpinversion_tpu_torch.schedulers.ddim import (
     DDIMSchedule,
     classifier_free_guidance,
     ddim_step,
 )
+
+
+def guidance_forward(
+    unet: UNet,
+    schedule: DDIMSchedule,
+    latent: torch.Tensor,  # (1, h, w, c) or (B, h, w, c) start latent x_T
+    cond_embeddings: torch.Tensor,  # (B, 77, D)
+    uncond_embeddings: torch.Tensor,  # (B, 77, D) or per-step (T, 1|B, 77, D)
+    guidance_scale: float,
+    control: BaseControl = NO_CONTROL,
+    tensors: Optional[Dict[str, torch.Tensor]] = None,
+    noise_loss: Optional[torch.Tensor] = None,  # (T, B, h, w, c) offsets
+    offset_row_mask: Optional[torch.Tensor] = None,  # (B,) 1.0 where offsets apply
+) -> torch.Tensor:
+    """CFG denoising at 2B UNet rows [uncond x B, cond x B] with attention
+    control and optional per-step offsets (added only where both
+    ``noise_loss`` and ``offset_row_mask`` are given). Returns the final
+    latents (B, h, w, c)."""
+    T = schedule.num_steps
+    B = cond_embeddings.shape[0]
+    latents = latent.expand((B,) + latent.shape[1:])
+    per_step_uncond = uncond_embeddings.dim() == 4
+    state = control.init_state(B, heads=unet.config.num_heads, device=latents.device)
+    for i in range(T):
+        t = schedule.timesteps[i]
+        unc = uncond_embeddings[i].expand_as(cond_embeddings) if per_step_uncond \
+            else uncond_embeddings
+        eps2, state = unet(torch.cat([latents, latents], dim=0), t,
+                           torch.cat([unc, cond_embeddings], dim=0), control, tensors, state,
+                           step=i)
+        eps = classifier_free_guidance(eps2[:B], eps2[B:], guidance_scale)
+        latents = ddim_step(schedule, eps, t, latents)
+        if noise_loss is not None and offset_row_mask is not None:
+            latents = latents + noise_loss[i] * offset_row_mask[:, None, None, None]
+        latents, state = control.step_callback(latents, tensors, state, i)
+    return latents
 
 
 def fused_direct_inversion_edit_srcfree(

@@ -1,13 +1,16 @@
-"""Flash-attention forward of the PyTorch port vs the JAX package's Pallas
-kernel (interpret mode on the CPU), and the wrapper's dispatch rules."""
+"""Flash attention of the PyTorch port, forward and backward, vs the JAX
+package's Pallas kernels (interpret mode on the CPU), and the wrappers'
+dispatch rules."""
+import functools
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import _torch_parity  # noqa: F401  (caps torch's CPU threads)
+from _torch_parity import rel_err  # also caps torch's CPU threads
 from pnpinversion_tpu.ops.flash_attention import flash_attention as jax_flash
 from pnpinversion_tpu_torch.ops import attention as tattn
 from pnpinversion_tpu_torch.ops import flash_attention as tflash
@@ -63,3 +66,64 @@ def test_use_flash_rule():
     assert not tattn.use_flash(on_cuda(4096), on_cuda(77))
     assert not tattn.use_flash(on_cuda(256), on_cuda(256))
     assert not tattn.use_flash(on_cuda(1000), on_cuda(1000))
+
+
+# f32 on both sides; the Pallas backward sums over 128-wide blocks and the
+# plain one in one product, so allow a few f32 ulps relative to max |grad|
+GRAD_RTOL = 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_flash_vjp(b, h, sq, sk, d):
+    """Inputs, dO and jax.vjp of the Pallas kernel (interpret mode)."""
+    rng = np.random.RandomState(sq + sk + d + 1)
+    q, k, v, do = (rng.randn(b, h, s, d).astype(np.float32) for s in (sq, sk, sk, sq))
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, d ** -0.5, block_q=128, block_k=128,
+                                               bwd_block_q=128, bwd_block_k=128,
+                                               interpret=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return (q, k, v, do), tuple(np.asarray(g) for g in vjp(jnp.asarray(do)))
+
+
+@pytest.mark.parametrize("path", ["reference", "function"])
+@pytest.mark.parametrize("b,h,sq,sk,d", [(1, 2, 256, 256, 40), (1, 2, 256, 256, 64),
+                                         (1, 2, 256, 128, 40)])
+def test_flash_bwd_matches_pallas_interpret(b, h, sq, sk, d, path):
+    """dQ, dK, dV of the plain backward (from the forward's O and LSE) and of
+    the FlashAttention autograd Function vs jax.vjp of the Pallas kernels."""
+    (q, k, v, do), want = _jax_flash_vjp(b, h, sq, sk, d)
+    q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, do))
+    scale = d ** -0.5
+    before = (tflash.flash_attention_bwd_dq.launches, tflash.flash_attention_bwd_dkv.launches)
+    if path == "reference":
+        out, lse = tflash.flash_attention_fwd(q, k, v, scale)
+        got = tflash.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
+    else:
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        out = tflash.flash_attention(q, k, v, scale)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, (q, k, v), do)
+    # CPU tensors take the plain versions: no kernel launch is counted
+    assert (tflash.flash_attention_bwd_dq.launches,
+            tflash.flash_attention_bwd_dkv.launches) == before
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= GRAD_RTOL
+
+
+def test_flash_attention_gradcheck():
+    """FlashAttention's backward against finite differences, in f64."""
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, s, 8)).requires_grad_(True) for s in (6, 5, 5))
+    assert torch.autograd.gradcheck(lambda q, k, v: tflash.flash_attention(q, k, v, 0.35),
+                                    (q, k, v))
+
+
+def test_raw_forward_refuses_grad_tracking_inputs():
+    """Only the autograd Function may run the forward on inputs that require
+    grad; under no_grad the raw forward takes them."""
+    q = torch.zeros(1, 2, 16, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        tflash.flash_attention_fwd(q, q, q, 0.1)
+    with torch.no_grad():
+        out, _ = tflash.flash_attention_fwd(q, q, q, 0.1)
+    assert out.shape == q.shape

@@ -50,3 +50,58 @@ def test_kernel_wrapper_raises_on_cuda(cuda_device):
     x = torch.zeros(1, 2, 128, 136, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tflash.flash_attention_fwd(x, x, x, 0.1)
+
+
+def _bwd_inputs(device, b, h, sq, sk, d, strided, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(s):
+        if strided:
+            x = torch.randn((b, s, h * d), generator=gen, device=device)
+            return x.to(torch.bfloat16).view(b, s, h, d).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen, device=device).to(torch.bfloat16)
+
+    q, k, v, do = make(sq), make(sk), make(sk), make(sq)
+    out, lse = tflash.flash_attention_fwd(q, k, v, d ** -0.5)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,d,strided", [(1, 4096, 4096, 40, True),
+                                               (1, 1024, 1024, 80, True),
+                                               (2, 1000, 77, 40, False),
+                                               (1, 200, 330, 64, False)])
+def test_bwd_kernels_match_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
+    q, k, v, out, lse, do = _bwd_inputs(cuda_device, b, 8, sq, sk, d, strided)
+    scale = d ** -0.5
+    before = (tflash.flash_attention_bwd_dq.launches, tflash.flash_attention_bwd_dkv.launches)
+    got = tflash.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (tflash.flash_attention_bwd_dq.launches,
+            tflash.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = tflash.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        # bf16 rounding of P and dS before their products and of the outputs
+        err = ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+        assert err <= 2e-2, (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_round_trip_on_cuda(cuda_device):
+    """FlashAttention records a graph on CUDA tensors that require grad, and
+    its backward launches both kernels; the raw forward refuses such inputs."""
+    q, k, v, out, lse, do = _bwd_inputs(cuda_device, 1, 8, 1024, 1024, 80, True)
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    with pytest.raises(RuntimeError):
+        tflash.flash_attention_fwd(q, k, v, 80 ** -0.5)
+    o = tflash.flash_attention(q, k, v, 80 ** -0.5)
+    assert o.grad_fn is not None
+    before = tflash.flash_attention_bwd_dkv.launches
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_bwd_dkv.launches == before + 1
+    want = tflash.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), out, lse,
+                                                do, 80 ** -0.5)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert ((g.float() - w.float()).abs().max() / w.float().abs().max()).item() <= 2e-2

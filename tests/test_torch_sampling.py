@@ -165,5 +165,5 @@ def test_editor_strip(pipes):
 
 def test_editor_rejects_unported_methods(pipes):
     with pytest.raises(NotImplementedError, match="A7"):
-        P2PEditor(pipes[1])("null-text-inversion+p2p", np.zeros((16, 16, 3), np.uint8),
+        P2PEditor(pipes[1])("negative-prompt-inversion+p2p", np.zeros((16, 16, 3), np.uint8),
                             SRC, TAR)
