@@ -41,6 +41,16 @@ import torch
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3
 
+# (name, B, H, Sq, Sk, D, strided, timed): edges of the forward's tiling, Sq
+# and Sk not multiples of 128 (64- and 128-row tiles), the smallest and
+# largest head dims, a long cross shape
+EDGE_CASES = [
+    ("ragged_1000_d80", 1, 8, 1000, 1000, 80, True, False),
+    ("ragged_1000_d80_b4", 4, 8, 1000, 1000, 80, True, False),
+    ("d128_s1024", 1, 8, 1024, 1024, 128, False, False),
+    ("d16_s1024", 2, 8, 1024, 1024, 16, False, False),
+    ("cross_4096x77", 1, 8, 4096, 77, 40, True, False),
+]
 # (name, B, H, Sq, Sk, D, strided, timed): strided inputs are heads split from
 # a (B, S, H*D) tensor, as the UNet's attention sites make them. B: 3 rows in
 # the fused DirectInversion scan, 1 in inversion and null-text's inner loop,
@@ -56,7 +66,7 @@ FLASH_CASES = [
     ("edit_32x32", 4, 8, 1024, 1024, 80, True, True),
     ("d64_s1024", 1, 8, 1024, 1024, 64, False, False),
     ("ragged_cross", 1, 8, 1000, 77, 40, False, False),
-]
+] + EDGE_CASES
 FLASH_O_TOL = 1e-2      # |v| ~ N(0,1): O is a convex mix of v; bf16 rounding of O and P
 FLASH_LSE_RTOL = 1e-3   # f32 statistics on both sides
 EXPECTED_FLASH_LAUNCHES = 1000  # 10 sites x (50 inversion + 50 scan) UNet calls
@@ -67,13 +77,14 @@ FLASH_SITES = 10  # 64^2 and 32^2 self-attention sites per SD1.4 UNet call
 BWD_SITES = FLASH_SITES - 1
 
 # (name, B, H, Sq, Sk, D, strided, timed): the null-text inner loop's shapes
-# (one UNet row), d=64 and a ragged cross-shaped case
+# (one UNet row), d=64, a ragged cross-shaped case and the forward's edge
+# cases, whose O and LSE the backward kernels read
 FLASH_BWD_CASES = [
     ("nulltext_64x64", 1, 8, 4096, 4096, 40, True, True),
     ("nulltext_32x32", 1, 8, 1024, 1024, 80, True, True),
     ("d64_s1024", 1, 8, 1024, 1024, 64, False, False),
     ("ragged_cross", 1, 8, 1000, 77, 40, False, False),
-]
+] + EDGE_CASES
 # relative to max |plain|: P and dS are rounded to bf16 before their products
 # (as the TPU kernels round them) and dQ/dK/dV are stored in bf16
 FLASH_BWD_RTOL = 2e-2
@@ -91,7 +102,10 @@ def _event_pair():
 
 def time_interleaved(fns: dict, reps: int = 20, warmup: int = 3,
                      min_sample_ms: float = 1.0) -> dict:
-    """Median CUDA-event milliseconds per call of each callable, run in turns.
+    """Median CUDA-event milliseconds per call of each callable, run in turns
+    (under its own name), with the spread of its samples (``<name>_spread``,
+    max - min) and the host's microseconds to issue one call
+    (``<name>_host_us``, median, taken while the device was busy).
 
     Each sample times back-to-back calls (as many as make ``min_sample_ms``
     of device work, at most 50) queued behind a spin kernel that lasts longer
@@ -118,14 +132,17 @@ def time_interleaved(fns: dict, reps: int = 20, warmup: int = 3,
         e1.synchronize()
         inner[name] = max(1, min(50, int(np.ceil(min_sample_ms / e0.elapsed_time(e1)))))
     times = {k: [] for k in fns}
+    issue_ms = {k: [] for k in fns}
     for _ in range(reps):
         for name, fn in fns.items():
             spin_ms = 1.0 + 2.0 * inner[name] * host_ms[name]
             for _ in range(8):
                 torch.cuda._sleep(int(spin_ms * cycles_per_ms))
                 e0.record()
+                t0 = time.perf_counter()
                 for _ in range(inner[name]):
                     fn()
+                issue_ms[name].append((time.perf_counter() - t0) * 1e3 / inner[name])
                 e1.record()
                 ran_dry = e0.query()
                 e1.synchronize()
@@ -135,7 +152,10 @@ def time_interleaved(fns: dict, reps: int = 20, warmup: int = 3,
             else:
                 raise RuntimeError(f"timing {name}: the host could not keep the queue full")
             times[name].append(e0.elapsed_time(e1) / inner[name])
-    return {k: statistics.median(v) for k, v in times.items()}
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out.update({f"{k}_spread": max(v) - min(v) for k, v in times.items()})
+    out.update({f"{k}_host_us": 1e3 * statistics.median(v) for k, v in issue_ms.items()})
+    return out
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -164,20 +184,29 @@ def flash_bwd_bounds(b, h, sq, sk, d) -> dict:
 
 
 def ptxas_summary(log: str) -> list:
-    """One line per compiled kernel: name<template arg>, registers, spills."""
-    lines, name = [], None
+    """One line per compiled kernel: name<template args>, registers, spills,
+    static shared memory; then ptxas' warnings (e.g. wgmma serialised)."""
+    lines, warnings, name = [], [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(flash_\w+?_kernel)ILi(\d+)E", line)
+        # the kernel's own name follows its length in the mangled name, after
+        # the anonymous namespace's (which also holds "flash_")
+        m = re.search(
+            r"Compiling entry function '\S*?(?<=\d)(flash_[a-z_]+?_kernel)I((?:Li\d+E)+)E", line)
         if m:
-            name, spills = f"{m.group(1)}<{m.group(2)}>", ""
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            name, spills = f"{m.group(1)}<{args}>", ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            lines.append(f"{name}: {m.group(1)} registers, {spills}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{name}: {m.group(1)} registers, {spills}, static smem "
+                         f"{smem.group(1) if smem else 0} B")
             name = None
-    return lines
+        if "warning" in line.lower():
+            warnings.append(line.strip())
+    return lines + warnings
 
 
 def _bf16_heads(gen, b, h, s, d, strided) -> torch.Tensor:
@@ -189,13 +218,17 @@ def _bf16_heads(gen, b, h, s, d, strided) -> torch.Tensor:
     return torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def kernel_phase() -> dict:
-    """Kernel vs plain version at every case; times at the timed cases."""
+def kernel_phase(timing: bool = True) -> dict:
+    """Kernel vs plain version at every case; times at the timed cases (none
+    with ``timing=False``). Each row names the forward's tile (query rows per
+    CTA) and its dynamic shared memory."""
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = [], 0.0
     for name, b, h, sq, sk, d, strided, timed in FLASH_CASES:
+        timed = timed and timing
         def make(s):
             return _bf16_heads(gen, b, h, s, d, strided)
 
@@ -207,7 +240,9 @@ def kernel_phase() -> dict:
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = ((lse - lse_ref).abs() / lse_ref.abs().clamp_min(1.0)).max().item()
         ok = err_o <= FLASH_O_TOL and err_lse <= FLASH_LSE_RTOL
-        row = {"case": name, "shape": [b, h, sq, sk, d], "max_abs_err_o": err_o,
+        tile = fa.fwd_tile_rows(b * h, sq, sms)
+        row = {"case": name, "shape": [b, h, sq, sk, d], "tile_rows": tile,
+               "smem_bytes": fa.fwd_smem_bytes(tile, d), "max_abs_err_o": err_o,
                "max_rel_err_lse": err_lse, "ok": ok}
         if timed:
             qc, kc, vc = (x.contiguous() for x in (q, k, v))

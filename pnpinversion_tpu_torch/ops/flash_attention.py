@@ -119,9 +119,43 @@ def _heads_last(b: int, h: int, s: int, d: int, like: torch.Tensor) -> torch.Ten
 def _kernel():
     fn = build.load(KERNEL).pnpi_flash_attention_fwd_bf16
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [ptr] * 5 + [i64] * 12 + [i32] * 5 + [ctypes.c_float, ptr]
+    fn.argtypes = [ptr] * 5 + [i64] * 12 + [i32] * 6 + [ctypes.c_float, ptr]
     fn.restype = ctypes.c_int
     return fn
+
+
+def fwd_smem_bytes(tile_rows: int, d: int) -> int:
+    """Dynamic shared memory of the forward kernel's instantiation for
+    (tile_rows, d), as the C side computes it."""
+    return build.load(KERNEL).pnpi_flash_attention_fwd_smem_bytes(tile_rows, d)
+
+
+def fwd_tile_rows(bh: int, sq: int, sms: int) -> int:
+    """Query rows per CTA of the forward kernel: 128 (two consumer warpgroups)
+    or 64 (one). Each consumer warpgroup walks all keys for its 64 rows, so a
+    wave of CTAs takes about as long with either tile: pick the one that
+    needs fewer waves over ``sms`` SMs at one CTA per SM, then the one that
+    keeps more SMs busy, then 128 (K/V loaded once for twice the rows). One
+    CTA per SM even where two 64-row CTAs would fit (d <= 64): on the H100 two
+    of them were slower than one 128-row CTA at every 64x64 site (1.1x)."""
+    def cost(rows: int):
+        ctas = -(-sq // rows) * bh
+        return -(-ctas // sms), -min(ctas, sms)
+
+    return 64 if cost(64) < cost(128) else 128
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _no_broadcast(x: torch.Tensor) -> torch.Tensor:
+    """A copy of an expanded input (a stride 0 over a dim longer than 1),
+    which a TMA tensor map cannot describe; other inputs as they are."""
+    if 0 in x.stride() and any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+        return x.contiguous()
+    return x
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,6 +187,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_reference(q, k, v, scale)
     _check(q, k, v)
     b, h, sq, d = q.shape
+    out, lse = _launch_fwd(q, k, v, scale, fwd_tile_rows(b * h, sq, _sm_count(q.device.index)))
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward kernel with ``rows`` query rows per CTA, on
+    inputs ``_check`` has passed."""
+    q, k, v = _no_broadcast(q), _no_broadcast(k), _no_broadcast(v)
+    b, h, sq, d = q.shape
     sk = k.shape[2]
     out = _heads_last(b, h, sq, d, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -161,15 +209,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
-        b, h, sq, sk, d, float(scale), stream)
+        b, h, sq, sk, d, rows, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {err} for q "
                            f"{tuple(q.shape)}, k {tuple(k.shape)}")
-    flash_attention_fwd.launches += 1
     return out, lse
-
-
-flash_attention_fwd.launches = 0
 
 
 def _launch_bwd(fn, name: str, tensors: dict, q: torch.Tensor, sk: int, scale: float) -> None:

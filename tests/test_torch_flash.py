@@ -127,3 +127,15 @@ def test_raw_forward_refuses_grad_tracking_inputs():
     with torch.no_grad():
         out, _ = tflash.flash_attention_fwd(q, q, q, 0.1)
     assert out.shape == q.shape
+
+
+@pytest.mark.parametrize("bh,sq,rows", [
+    (8, 1024, 64),    # 1-row 32^2: 128 CTAs of 64 rows fill the card, 64 of 128 rows half of it
+    (16, 1024, 128),  # 2-row 32^2: 128 CTAs of 128 rows in one wave, 256 of 64 in two
+])
+def test_forward_tile_rule(bh, sq, rows):
+    """The forward kernel's query tile per CTA, chosen on the host for an
+    H100's 132 SMs (a pure function: the kernel itself needs the card)."""
+    assert tflash.fwd_tile_rows(bh, sq, 132) == rows
+    # the 64^2 sites, 1 to 4 rows, all take 128-row tiles
+    assert {tflash.fwd_tile_rows(8 * b, 4096, 132) for b in (1, 2, 3, 4)} == {128}

@@ -19,16 +19,21 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk,d,strided", [(1024, 1024, 80, True), (4096, 4096, 40, True),
-                                             (1000, 77, 40, False), (256, 256, 64, False)])
-def test_kernel_matches_plain_on_cuda(cuda_device, sq, sk, d, strided):
+@pytest.mark.parametrize("b,sq,sk,d,strided", [
+    (2, 1024, 1024, 80, True), (2, 4096, 4096, 40, True), (2, 1000, 77, 40, False),
+    (2, 256, 256, 64, False),
+    # edges of the forward's tiling: Sq and Sk not multiples of 128 (64- and
+    # 128-row tiles), d = 128 and 16, a long cross shape, the 4-row 64^2 site
+    (1, 1000, 1000, 80, True), (4, 1000, 1000, 80, True), (1, 1024, 1024, 128, False),
+    (2, 1024, 1024, 16, False), (1, 4096, 77, 40, True), (4, 4096, 4096, 40, True)])
+def test_kernel_matches_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
 
     def make(s):
         if strided:  # heads split from (B, S, H*D), as the UNet makes them
-            x = torch.randn((2, s, 8 * d), generator=gen, device=cuda_device)
-            return x.to(torch.bfloat16).view(2, s, 8, d).transpose(1, 2)
-        return torch.randn((2, 8, s, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+            x = torch.randn((b, s, 8 * d), generator=gen, device=cuda_device)
+            return x.to(torch.bfloat16).view(b, s, 8, d).transpose(1, 2)
+        return torch.randn((b, 8, s, d), generator=gen, device=cuda_device).to(torch.bfloat16)
 
     q, k, v = make(sq), make(sk), make(sk)
     before = tflash.flash_attention_fwd.launches
@@ -37,6 +42,21 @@ def test_kernel_matches_plain_on_cuda(cuda_device, sq, sk, d, strided):
     assert tflash.flash_attention_fwd.launches == before + 1
     want, lse_want = tflash.flash_attention_reference(q, k, v, d ** -0.5)
     # bf16 output rounding of values |O| < ~3
+    assert (out.float() - want.float()).abs().max().item() <= 1e-2
+    assert ((lse - lse_want).abs() / lse_want.abs()).max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_kernel_takes_expanded_inputs_on_cuda(cuda_device):
+    """K/V broadcast over the batch (stride 0), which a TMA tensor map cannot
+    describe: the wrapper copies them and the result matches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((3, 8, 256, 40), generator=gen, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((1, 8, 200, 40), generator=gen, device=cuda_device)
+            .to(torch.bfloat16).expand(3, -1, -1, -1) for _ in range(2))
+    out, lse = tflash.flash_attention_fwd(q, k, v, 40 ** -0.5)
+    torch.cuda.synchronize()
+    want, lse_want = tflash.flash_attention_reference(q, k, v, 40 ** -0.5)
     assert (out.float() - want.float()).abs().max().item() <= 1e-2
     assert ((lse - lse_want).abs() / lse_want.abs()).max().item() <= 1e-3
 
