@@ -3,20 +3,21 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 1. the card's name and power limit, torch/CUDA versions, TF32 flags;
 2. build every CUDA kernel of the port from the sources in this checkout (one
-   nvcc per source, all started together) and print ptxas' registers and
-   spills per kernel;
+   nvcc per source, all started together), print ptxas' registers and
+   spills per kernel, and fail on a spill or a wgmma that ptxas serialised;
 3. hold each kernel against its plain PyTorch version at every shape the
    paths give it (and a few more), and time kernel, plain version and the
    PyTorch library call that computes the same function, with CUDA events
    around calls queued behind a spin kernel, so no host time is counted: the
-   flash forward, then the backward's dq and dkv kernels;
+   flash forward, then the backward's three kernels (prep, main, dQ
+   convert) and the whole backward;
 4. drive the first path: ``P2PEditor("directinversion+p2p", ...)`` on an
    SD1.4 pipeline at full width (random weights from a seed, bf16, 512², 50
    DDIM steps), a warm-up edit, a timed edit whose kernel launches are
    counted, and a per-phase timed edit whose latents are checked;
 5. drive the second path: ``P2PEditor("null-text-inversion+p2p", ...)`` on
    the same pipeline: a warm-up edit at 2 DDIM steps, then one edit at 50
-   whose launches of all three kernels are counted and whose phases are
+   whose launches of every kernel are counted and whose phases are
    timed to a synchronize each; the backward kernels run in its inner Adam
    loop, which differentiates through the UNet; then one counted
    ``ddim+p2p`` edit;
@@ -78,7 +79,8 @@ BWD_SITES = FLASH_SITES - 1
 
 # (name, B, H, Sq, Sk, D, strided, timed): the null-text inner loop's shapes
 # (one UNet row), d=64, a ragged cross-shaped case and the forward's edge
-# cases, whose O and LSE the backward kernels read
+# cases (d = 16/128, ragged 1000^2 at 1 and 4 rows, 4096x77), whose O and LSE
+# the backward kernels read
 FLASH_BWD_CASES = [
     ("nulltext_64x64", 1, 8, 4096, 4096, 40, True, True),
     ("nulltext_32x32", 1, 8, 1024, 1024, 80, True, True),
@@ -88,6 +90,7 @@ FLASH_BWD_CASES = [
 # relative to max |plain|: P and dS are rounded to bf16 before their products
 # (as the TPU kernels round them) and dQ/dK/dV are stored in bf16
 FLASH_BWD_RTOL = 2e-2
+FLASH_DELTA_RTOL = 1e-3  # f32 sums over d on both sides, in another order
 
 
 def card_line() -> str:
@@ -171,40 +174,50 @@ def flash_bound_ms(b, h, sq, sk, d) -> tuple:
 
 
 def flash_bwd_bounds(b, h, sq, sk, d) -> dict:
-    """Bounds of the dq kernel (3 products; reads q, k, v, o, do, lse, writes
-    dq, delta), the dkv kernel (4 products; reads q, k, v, do, lse, delta,
-    writes dk, dv) and the whole backward (FA2's 5 products). Each kernel also
-    takes Sq*Sk exp2 on the SFUs, which these bounds leave out."""
+    """Bounds of the backward's kernels: prep (reads O, dO, LSE; writes the
+    stats and the zeroed f32 dQ accumulator), main (FA2's 5 products; reads
+    q, k, v, dO and the stats, writes dK, dV and the f32 dQ accumulator once),
+    dQ convert (reads the accumulator, writes dQ) and the whole backward.
+    The main kernel also takes Sq*Sk exp2 on the SFUs, which these bounds
+    leave out."""
     bh, mn = b * h, b * h * sq * sk * d
-    q_bytes, kv_bytes, row_bytes = 2.0 * bh * sq * d, 2.0 * bh * sk * d, 4.0 * bh * sq
-    return {"dq": bound_ms(6.0 * mn, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes + q_bytes),
-            "dkv": bound_ms(8.0 * mn, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + 2 * kv_bytes),
-            "bwd": bound_ms(10.0 * mn, 3 * q_bytes + 2 * kv_bytes + row_bytes
+    q_bytes, kv_bytes = 2.0 * bh * sq * d, 2.0 * bh * sk * d
+    sq_pad = -(-sq // 64) * 64
+    stats_bytes, acc_bytes = 8.0 * bh * sq_pad, 4.0 * bh * sq_pad * d
+    return {"prep": bound_ms(2.0 * bh * sq * d, 2 * q_bytes + 4.0 * bh * sq + stats_bytes
+                             + acc_bytes),
+            "main": bound_ms(10.0 * mn, 2 * q_bytes + 2 * kv_bytes + stats_bytes
+                             + 2 * kv_bytes + acc_bytes),
+            "convert": bound_ms(0.0, 4.0 * bh * sq * d + q_bytes),
+            "bwd": bound_ms(10.0 * mn, 3 * q_bytes + 2 * kv_bytes + 4.0 * bh * sq
                             + q_bytes + 2 * kv_bytes)}
 
 
 def ptxas_summary(log: str) -> list:
-    """One line per compiled kernel: name<template args>, registers, spills,
-    static shared memory; then ptxas' warnings (e.g. wgmma serialised)."""
+    """One line per compiled kernel: name<template args>, registers, stack
+    frame, spills, static shared memory; then ptxas' warnings and its notes
+    of lost performance (e.g. wgmma serialised)."""
     lines, warnings, name = [], [], None
     for line in log.splitlines():
         # the kernel's own name follows its length in the mangled name, after
         # the anonymous namespace's (which also holds "flash_")
-        m = re.search(
-            r"Compiling entry function '\S*?(?<=\d)(flash_[a-z_]+?_kernel)I((?:Li\d+E)+)E", line)
+        m = re.search(r"Compiling entry function '\S*?(?<=\d)(flash_[a-z_]+?_kernel)"
+                      r"(?:I((?:Li\d+E)+)E)?", line)
         if m:
-            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
-            name, spills = f"{m.group(1)}<{args}>", ""
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2) or ""))
+            name, spills = m.group(1) + (f"<{args}>" if args else ""), ""
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            spills = (f"stack frame {m.group(1)} B, spill stores {m.group(2)} B, "
+                      f"loads {m.group(3)} B")
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
             lines.append(f"{name}: {m.group(1)} registers, {spills}, static smem "
                          f"{smem.group(1) if smem else 0} B")
             name = None
-        if "warning" in line.lower():
+        if "warning" in line.lower() or "performance loss" in line.lower():
             warnings.append(line.strip())
     return lines + warnings
 
@@ -264,57 +277,88 @@ def kernel_phase(timing: bool = True) -> dict:
     return {"rows": rows, "max_abs_err": worst}
 
 
-def bwd_kernel_phase() -> dict:
-    """The backward's dq and dkv kernels vs the plain backward at every case;
-    times at the timed cases: each kernel alone, both in turn (the backward as
-    the Function runs it), the plain dq and dkv versions, and the backward of
+def bwd_kernel_phase(timing: bool = True) -> dict:
+    """The backward's kernels vs their plain versions at every case: delta
+    (from the prep kernel's stats) against its plain rowsum, dQ, dK and dV
+    against the plain backward, the largest run-to-run difference of dQ
+    (bulk reduce-adds in varying order) over three more runs, and dK/dV bit-identical
+    between runs. Times at the timed cases (none with ``timing=False``):
+    each kernel and its plain version, the whole backward as the Function
+    runs it, the plain backward, and the backward of
     F.scaled_dot_product_attention on a graph built once (a yardstick only)."""
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows, worst = [], {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, worst = [], {"delta": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dq_run_to_run": 0.0}
     for name, b, h, sq, sk, d, strided, timed in FLASH_BWD_CASES:
+        timed = timed and timing
+
         def make(s):
             return _bf16_heads(gen, b, h, s, d, strided)
 
         q, k, v, do = make(sq), make(sk), make(sk), make(sq)
         scale = d ** -0.5
         out, lse = fa.flash_attention_fwd(q, k, v, scale)
-        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, scale)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        stats, dq_acc = fa.flash_attention_bwd_prep(out, lse, do)
+        dk, dv = fa.flash_attention_bwd_main(q, k, v, do, stats, dq_acc, scale)
+        dq = fa.flash_attention_bwd_dq_convert(dq_acc, q, scale)
+        again = [fa.flash_attention_bwd(q, k, v, out, lse, do, scale) for _ in range(3)]
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
-        row = {"case": name, "shape": [b, h, sq, sk, d], "ok": True}
+        delta = fa.bwd_stats_rows(stats, sq)[1]
+        delta_ref = (do.float() * out.float()).sum(-1).reshape(b * h, sq)
+        tile = fa.bwd_tile_keys(b * h, sk, sms)
+        row = {"case": name, "shape": [b, h, sq, sk, d], "tile_keys": tile,
+               "smem_bytes": fa.bwd_smem_bytes(tile, d),
+               "max_rel_err_delta": ((delta - delta_ref).abs()
+                                     / delta_ref.abs().clamp_min(1.0)).max().item()}
+        row["ok"] = row["max_rel_err_delta"] <= FLASH_DELTA_RTOL
+        worst["delta"] = max(worst["delta"], row["max_rel_err_delta"])
         for key, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             err = (got.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
             row[f"max_abs_err_{key}"], row[f"rel_err_{key}"] = err, rel
             row["ok"] &= rel <= FLASH_BWD_RTOL
             worst[key] = max(worst[key], err)
+        row["dq_run_to_run_max_abs"] = max(
+            (g[0].float() - dq.float()).abs().max().item() for g in again)
+        row["dq_run_to_run_rel"] = (row["dq_run_to_run_max_abs"]
+                                    / want[0].float().abs().max().item())
+        row["dkv_bit_identical"] = all(torch.equal(g[1], dk) and torch.equal(g[2], dv)
+                                       for g in again)
+        row["ok"] &= row["dkv_bit_identical"] and row["dq_run_to_run_rel"] <= FLASH_BWD_RTOL
+        worst["dq_run_to_run"] = max(worst["dq_run_to_run"], row["dq_run_to_run_max_abs"])
+        del again
         if timed:
             leaves = [x.detach().contiguous().requires_grad_(True) for x in (q, k, v)]
             lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=scale)
             dout = do.contiguous()
+            scratch = dq_acc.clone()
             ms = time_interleaved({
-                "dq_ms": lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do, scale),
-                "dkv_ms": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale),
+                "prep_ms": lambda: fa.flash_attention_bwd_prep(out, lse, do),
+                "main_ms": lambda: fa.flash_attention_bwd_main(q, k, v, do, stats, dq_acc, scale),
+                "convert_ms": lambda: fa.flash_attention_bwd_dq_convert(dq_acc, q, scale),
                 "bwd_ms": lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, scale),
-                "plain_dq_ms": lambda: fa.flash_attention_bwd_dq_reference(
+                "plain_prep_ms": lambda: fa.flash_attention_bwd_prep_reference(out, lse, do),
+                "plain_main_ms": lambda: fa.flash_attention_bwd_main_reference(
+                    q, k, v, do, stats, scratch, scale),
+                "plain_convert_ms": lambda: fa.flash_attention_bwd_dq_convert_reference(
+                    dq_acc, q, scale),
+                "plain_bwd_ms": lambda: fa.flash_attention_bwd_reference(
                     q, k, v, out, lse, do, scale),
-                "plain_dkv_ms": lambda: fa.flash_attention_bwd_dkv_reference(
-                    q, k, v, do, lse, delta, scale),
                 "library_bwd_ms": lambda: torch.autograd.grad(lib_out, leaves, dout,
                                                               retain_graph=True),
             })
             bounds = flash_bwd_bounds(b, h, sq, sk, d)
             row.update(ms, **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
                        **{f"{k}_bound_by": v[1] for k, v in bounds.items()})
-            del leaves, lib_out
+            del leaves, lib_out, scratch
         print("flash_bwd", json.dumps(row), flush=True)
         if not row["ok"]:
             raise AssertionError(f"flash backward kernels disagree with the plain version: {row}")
         rows.append(row)
-        del q, k, v, do, out, lse, dq, dk, dv, delta, want
+        del q, k, v, do, out, lse, stats, dq_acc, dq, dk, dv, want
     torch.cuda.empty_cache()
     return {"rows": rows, "max_abs_err": worst}
 
@@ -344,15 +388,17 @@ def _random_images(seed: int):
 def _reset_counts() -> None:
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
-    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+    for fn in (fa.flash_attention_fwd,) + fa.BWD_WRAPPERS:
         fn.launches = 0
 
 
 def _counts() -> dict:
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
-    return {"fwd": fa.flash_attention_fwd.launches, "dq": fa.flash_attention_bwd_dq.launches,
-            "dkv": fa.flash_attention_bwd_dkv.launches}
+    return {"fwd": fa.flash_attention_fwd.launches,
+            "prep": fa.flash_attention_bwd_prep.launches,
+            "main": fa.flash_attention_bwd_main.launches,
+            "convert": fa.flash_attention_bwd_dq_convert.launches}
 
 
 def _check_strip(strip) -> None:
@@ -376,7 +422,7 @@ def main_path_phase(pipe) -> dict:
     counts = _counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     _check_strip(strip)
-    want = {"fwd": EXPECTED_FLASH_LAUNCHES * steps // 50, "dq": 0, "dkv": 0}
+    want = {"fwd": EXPECTED_FLASH_LAUNCHES * steps // 50, "prep": 0, "main": 0, "convert": 0}
     if counts != want:
         raise AssertionError(f"kernel launches in one edit {counts}, want {want}")
 
@@ -446,15 +492,15 @@ def null_text_phase(pipe, steps: int = NULL_TEXT_STEPS) -> dict:
     for name, (x, shape) in want_shapes.items():
         if tuple(x.shape) != shape or not torch.isfinite(x).all():
             raise AssertionError(f"{name}: shape {tuple(x.shape)} (want {shape}) or not finite")
-    # every inner Adam step runs one backward through the UNet: one dq and one
-    # dkv launch per differentiated flash site; every UNet call runs one
-    # forward per site
-    inner = counts["dq"] // BWD_SITES
-    if (counts["dq"] != counts["dkv"] or counts["dq"] % BWD_SITES
-            or not steps <= inner <= NULL_TEXT_INNER * steps):
-        raise AssertionError(f"backward launches {counts}: want equal dq/dkv counts, a "
-                             f"multiple of {BWD_SITES}, {steps}..{NULL_TEXT_INNER * steps} "
-                             "inner steps")
+    # every inner Adam step runs one backward through the UNet: one launch of
+    # each backward kernel per differentiated flash site; every UNet call
+    # runs one forward per site
+    inner = counts["main"] // BWD_SITES
+    if (not counts["prep"] == counts["main"] == counts["convert"]
+            or counts["main"] % BWD_SITES or not steps <= inner <= NULL_TEXT_INNER * steps):
+        raise AssertionError(f"backward launches {counts}: want equal prep/main/convert "
+                             f"counts, {BWD_SITES} per inner step, "
+                             f"{steps}..{NULL_TEXT_INNER * steps} inner steps")
     # UNet calls: inversion T, cond eps T, inner steps K, advances T, recon T, edit T
     want_fwd = FLASH_SITES * (5 * steps + inner)
     if counts["fwd"] != want_fwd:
@@ -482,27 +528,46 @@ def ddim_phase(pipe) -> dict:
                                                         TAR, **EDIT_KW))
     counts = _counts()
     _check_strip(strip)
-    want = {"fwd": FLASH_SITES * 3 * steps, "dq": 0, "dkv": 0}
+    want = {"fwd": FLASH_SITES * 3 * steps, "prep": 0, "main": 0, "convert": 0}
     if counts != want:
         raise AssertionError(f"ddim+p2p kernel launches {counts}, want {want}")
     return {"steps": steps, "edit_s_per_image": t_edit, "launches": counts}
 
 
-def _bwd_entry(name: str, key: str, replaces: str, bwd: dict, launches: int) -> dict:
-    """One backward kernel's entry of the kernels line, at the null-text
-    inner loop's 64^2 shape."""
+BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
+TPU_FLASH = "pnpinversion_tpu/ops/flash_attention.py"
+
+
+def _bwd_entries(bwd: dict, launches: dict) -> list:
+    """The backward kernels' entries of the kernels line, at the null-text
+    inner loop's 64^2 shape. The main kernel does the work of both TPU
+    backward kernels (dK/dV and the dQ partials); prep and convert start and
+    end B2's dQ (delta, the f32 accumulator, the bf16 dQ). SDPA's backward
+    computes what all three do together, so the main entry's times are the
+    whole backward's (prep + main + convert), like with like, and the main
+    kernel's own times stand beside them."""
     head = next(r for r in bwd["rows"] if r["case"] == "nulltext_64x64")
-    errs = ("dq",) if key == "dq" else ("dk", "dv")
-    return {
-        "name": name, "route": "cuda",
-        "source": "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu",
-        "replaces": replaces, "launches": launches,
-        "max_abs_err": max(bwd["max_abs_err"][e] for e in errs),
-        "ms": head[f"{key}_ms"], "plain_ms": head[f"plain_{key}_ms"],
-        "bound_ms": head[f"{key}_bound_ms"], "bound_by": head[f"{key}_bound_by"],
-        "library_ms": head["library_bwd_ms"],
-        "library_computes": "dq, dk and dv (the whole backward of SDPA)",
-        "shape": head["shape"], "per_case": bwd["rows"]}
+    err = bwd["max_abs_err"]
+    kernels = (("flash_attention_bwd_prep", "prep", "prep", f"{TPU_FLASH}:99", err["delta"], None),
+               ("flash_attention_bwd_main", "main", "bwd", f"{TPU_FLASH}:128",
+                max(err["dq"], err["dk"], err["dv"]), head["library_bwd_ms"]),
+               ("flash_attention_bwd_dq_convert", "convert", "convert", f"{TPU_FLASH}:99",
+                err["dq"], None))
+    entries = []
+    for name, key, timed, replaces, max_err, library in kernels:
+        entries.append({
+            "name": name, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": max_err,
+            "ms": head[f"{timed}_ms"], "plain_ms": head[f"plain_{timed}_ms"],
+            "bound_ms": head[f"{timed}_bound_ms"], "bound_by": head[f"{timed}_bound_by"],
+            "library_ms": library, "shape": head["shape"]})
+    entries[1].update(also_replaces=f"{TPU_FLASH}:99",
+                      ms_covers="the whole backward (prep, main, dQ convert), as SDPA's",
+                      library_computes="dq, dk and dv (the whole backward of SDPA)",
+                      main_kernel_ms=head["main_ms"], main_kernel_plain_ms=head["plain_main_ms"],
+                      main_kernel_bound_ms=head["main_bound_ms"],
+                      dq_run_to_run_max_abs=err["dq_run_to_run"], per_case=bwd["rows"])
+    return entries
 
 
 def main() -> int:
@@ -525,7 +590,13 @@ def main() -> int:
     build_s = build.build([KERNEL, BWD_KERNEL])
     print(f"build: {json.dumps(build_s)} total {time.perf_counter() - t0:.1f}s", flush=True)
     for name in (KERNEL, BWD_KERNEL):
-        print(f"ptxas {name}.cu:", *ptxas_summary(build.build_log(name)), sep="\n  ", flush=True)
+        summary = ptxas_summary(build.build_log(name))
+        print(f"ptxas {name}.cu:", *summary, sep="\n  ", flush=True)
+        lost = [line for line in summary if re.search(
+            r"Performance Loss|stack frame [1-9]|spill stores [1-9]|spill loads [1-9]|warning",
+            line, re.IGNORECASE)]
+        if lost:
+            raise AssertionError(f"ptxas: spills or serialised wgmma in {name}.cu: {lost}")
 
     flash = kernel_phase()
     bwd = bwd_kernel_phase()
@@ -543,7 +614,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "pnpinversion_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "pnpinversion_tpu/ops/flash_attention.py:60",
+        "replaces": f"{TPU_FLASH}:60",
         "launches": main_path["flash_launches_per_edit"],
         "launches_by_path": {"directinversion+p2p": main_path["flash_launches_per_edit"],
                              NULL_TEXT: nt_launches["fwd"],
@@ -552,10 +623,7 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": head["shape"], "per_case": flash["rows"]},
-        _bwd_entry("flash_attention_bwd_dq", "dq", "pnpinversion_tpu/ops/flash_attention.py:99",
-                   bwd, nt_launches["dq"]),
-        _bwd_entry("flash_attention_bwd_dkv", "dkv",
-                   "pnpinversion_tpu/ops/flash_attention.py:128", bwd, nt_launches["dkv"]),
+        *_bwd_entries(bwd, nt_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

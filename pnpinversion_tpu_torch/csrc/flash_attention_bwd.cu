@@ -11,552 +11,639 @@
 // bf16 before their products, as the TPU kernels cast them to the input type;
 // every product accumulates in f32 and the outputs are stored in bf16.
 //
-// Two kernels, launched in this order on one stream:
-// - dq: one CTA of four warps per 64 query rows of one (batch, head). It first
-//   computes delta for its rows from the O and dO tiles (and writes it out for
-//   the dkv kernel), then walks the 64-row K/V tiles: S = Q K^T, dP = dO V^T,
-//   dS, and dQ += dS K with dS re-packed in registers as the A operand.
-// - dkv: one CTA of four warps per 64 key rows. It walks the 64-row Q/dO tiles
-//   (with their LSE and delta) and computes S^T = K Q^T and dP^T = V dO^T
-//   directly, so P^T and dS^T come out in the accumulator layout that is the A
-//   operand of dV += P^T dO and dK += dS^T Q: no round trip through shared
-//   memory. dK is scaled once at the end.
+// Three kernels, launched in this order on one stream:
+// - flash_bwd_prep_kernel: for each query row, delta in f32 and LSE * log2(e),
+//   written to a stats buffer of 64-row tiles, (B*H, n_q, 2, 64), that reads 0
+//   past Sq; and zeroes the f32 dQ accumulator (B*H, 64 * n_q, d).
+// - flash_bwd_kernel: the one pass over the scores. One CTA per 64 * NC keys of
+//   one (batch, head); it walks all query tiles of 64 rows.
+// - flash_bwd_dq_convert_kernel: dQ = bf16(scale * accumulator) into the
+//   (strided) output.
 //
 // What bounds it on an H100. At SD1.4's 64^2 site (B*H = 8, S = 4096, d = 40)
-// dq does three products (6*B*H*Sq*Sk*d = 32 GFLOP, 33 us at 989 TFLOP/s) and
-// dkv four (8*B*H*Sq*Sk*d = 43 GFLOP, 43 us), against 13 MB of Q/K/V/O/dO: both
-// are compute-bound. As in the forward, the exponentials weigh as much: each
-// kernel takes Sq*Sk exp2 = 134 M on the SFUs, about 32 us at 16 per clock per
-// SM and 1.98 GHz.
+// the five products are 10*B*H*Sq*Sk*d = 54 GFLOP, 54 us at 989 TFLOP/s; the
+// Sq*Sk = 134 M exp2 take about 32 us on the SFUs at 16 per clock per SM; the
+// dQ partial sums each CTA adds into the f32 accumulator are Sk / (64 NC)
+// times Sq * d floats per head: 168 MB of L2 reductions at NC = 2. The
+// kernel is bound by the tensor cores and the SFUs, as long as neither waits
+// for copies and the reductions stay off the critical path.
 //
-// What the design does about it. Nothing S x S ever leaves the SM, and all four
-// (dq: three) products run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-// f32 accumulate). Each warp owns 16 rows of the CTA's tile and keeps them as A
-// fragments in registers for the whole loop; the streamed tiles are staged in
-// shared memory with cp.async, two stages deep, so the next tile's copy overlaps
-// this tile's products. Operands whose contraction runs along the sequence are
-// read transposed with ldmatrix.trans. The streamed 64-row tile is processed as
-// two 32-row halves, which halves the live score and dP registers. The
-// exponentials run in the exp2 domain with the scale folded in. The head dim is
-// zero-padded in shared memory to a multiple of 16 (40 -> 48), which is exact:
-// zero columns add nothing to a contraction over d, and they only feed output
-// columns that are never written. Ragged Sq/Sk: rows past the end are zero-
-// filled (their dS is then exactly 0: dO and delta are zero), keys past Sk are
-// masked out of P in dq, and stores are guarded. All of Q, K, V, O, dO, dQ, dK
-// and dV may be strided views of a (B, S, H, D) tensor: only the last dim must
-// be contiguous.
+// What the design does about it (FA2/FA3's single pass, with the forward's
+// machinery: hopper_common.cuh):
+// - A producer warpgroup (setmaxnreg 24) loads the CTA's K and V once with TMA
+//   and keeps a ring of 2-3 stages of (Q, dO) tiles of 64 query rows in
+//   flight, with their LSE and delta rows (one bulk copy); full/empty
+//   mbarriers track the ring.
+// - Each of the NC consumer warpgroups owns 64 keys. Per query tile it runs
+//   S^T = K Q^T and dP^T = V dO^T as wgmma from shared memory (M = keys, both
+//   operands K-major), so P^T = exp2(S^T scale log2(e) - LSE log2(e)) (one
+//   exp2 per score) and dS^T = P^T (dP^T - delta) come out in the A-operand
+//   layout of dV += P^T dO and dK += dS^T Q (wgmma with A in registers, dO
+//   and Q read MN-major).
+// - dS^T is also written to shared memory as bf16 (128-byte swizzle, one row
+//   per key), and dQ_tile = dS K runs as a wgmma with both operands read
+//   MN-major: M = the 64 query rows, N = d, K = the CTA's 64 * NC keys. With
+//   two consumer warpgroups, one of them (alternating by tile) computes it
+//   over both warpgroups' keys, so each CTA adds one partial dQ per tile; a
+//   named barrier between the two orders the dS writes before it, and dS is
+//   double-buffered so the next tile's writes need no second barrier. The
+//   warpgroup index comes through a shuffle, so ptxas sees that branch as
+//   warp-uniform; otherwise it serialises every wgmma of the kernel (C7520).
+// - The dQ partial goes into an f32 tile in shared memory and one TMA bulk
+//   reduce-add (cp.reduce.async.bulk .add.f32) adds it to the accumulator.
+//   Measured against float2 atomics (red.global.add.v2.f32) from registers,
+//   in turns on an H100: 7.8% less time at 64^2 and 19% at 32^2
+//   (scripts/compare_torch_flash_bwd.py). The order of the reductions
+//   varies from run to run, so dQ is not bit-reproducible; dK and dV are.
+// - Head dims: TMA boxes span only the real columns of each 64-column block.
+//   The contractions over d run ceil(d/16) k-steps, so the 8 columns past an
+//   odd multiple of 8 are zeroed once in K, V and every Q/dO stage. Products
+//   with N = d run at N = 64 per column block; columns past d are never stored.
+// - Ragged edges: TMA zero-fills rows past Sq and Sk. Keys past Sk are masked
+//   to P = 0 explicitly (a zero K row would give P = exp(-LSE), which can
+//   overflow); query rows past Sq have Q = dO = 0 and LSE = delta = 0, so
+//   their dS is exactly 0, and their accumulator rows are padding that the
+//   convert kernel does not store. Q, K, V, dO, dQ, dK and dV may be strided
+//   views of a (B, S, H, D) tensor.
 //
-// Not done yet (later work): wgmma, TMA, warp specialisation, exp2 emulation on
-// the FMA units, one fused kernel with atomics for dQ.
+// Measured and dropped: issuing the next tile's S^T and dP^T before this
+// tile's dV/dK/dQ, so that its exp2 overlaps them (ptxas serialises the
+// wgmmas, C7515: 1.3x the time at 64^2); each consumer adding its own dQ
+// partial over its 64 keys, with no barrier between the two (twice the
+// reductions: 1.37x the time at 64^2). Not done: a persistent grid, TMA
+// stores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;    // rows of the CTA's own tile and of each streamed tile
-constexpr int kHalf = 32;     // streamed rows per inner step (two per tile)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 row padding: conflict-free fragment loads, 16-byte rows
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBlockM = 64;                      // query rows per streamed Q/dO tile
+constexpr int kTileBytes = kBlockM * kRowBytes;  // one column block of a Q or dO tile
+constexpr int kStatsBytes = 2 * kBlockM * 4;     // LSE * log2(e) and delta of one tile
 
-using bf16 = __nv_bfloat16;
-
-// Tensor order of the pointer and stride arrays of the C interface.
-enum Tensor { TQ, TK, TV, TO, TDO, TDQ, TDK, TDV, kTensors };
-
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* o;
-  const bf16* dout;
-  const float* lse;        // (B*H, Sq)
-  float* delta;            // (B*H, Sq), written by dq, read by dkv
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  int64_t sb[kTensors];    // element strides over (batch, head, seq)
-  int64_t sh[kTensors];
-  int64_t ss[kTensors];
-  int heads, sq, sk, d;
-  float scale;
-  float scale_log2;        // scale * log2(e)
+// NC consumer warpgroups of 64 keys; DK16 = ceil(d / 16) k-steps of the
+// products that contract over d.
+template <int NC, int DK16>
+struct Config {
+  static constexpr int KB = (DK16 + 3) / 4;  // 64-column blocks of the head dim: 1 or 2
+  static constexpr int kKeys = 64 * NC;
+  static constexpr int kThreads = 128 * (NC + 1);
+  // one consumer: two CTAs per SM, 128 registers a thread at launch; two
+  // consumers: 168. The producer's and consumers' counts sum to exactly that.
+  static constexpr int kMinBlocks = NC == 1 ? 2 : 1;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = NC == 1 ? 232 : 240;
+  static constexpr int kStages = (NC == 2 && KB == 2) ? 2 : 3;
+  static constexpr int kKVBlockBytes = kKeys * kRowBytes;  // one column block of K or V
+  static constexpr int kKBytes = KB * kKVBlockBytes;
+  static constexpr int kQBytes = KB * kTileBytes;  // one Q (or dO) tile
+  static constexpr int kStageBytes = 2 * kQBytes;
+  static constexpr int kDSBytes = kKeys * kRowBytes;  // dS^T of one query tile
+  static constexpr int kStageOffset = 2 * kKBytes;    // after K and V
+  static constexpr int kDSOffset = kStageOffset + kStages * kStageBytes;
+  static constexpr int kStatsOffset = kDSOffset + 2 * kDSBytes;
+  // dQ partials go through an f32 tile per consumer and one bulk reduce-add
+  static constexpr int kDQFOffset = kStatsOffset + kStages * kStatsBytes;
+  static constexpr int kDQFBytes = kBlockM * 64 * KB * 4;
+  static constexpr int kBarOffset = kDQFOffset + NC * kDQFBytes;
+  // + 1024: the dynamic shared memory is aligned to 1024 bytes (128-byte swizzle) by hand
+  static constexpr int kSmemBytes = kBarOffset + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kSmemBytes <= 232448, "over the H100's 227 KB of shared memory per block");
 };
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
+struct Params {
+  const float* stats;  // (B*H, n_q, 2, 64), from the prep kernel
+  float* dq_acc;       // (B*H, 64 * n_q, d), zeroed by the prep kernel
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int64_t dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;  // element strides over (batch, head, seq)
+  int heads, sq, sk, d;
+  float scale, scale_log2;  // scale, scale * log2(e)
+  MapDims mq, mk, mv, mdo;
+};
 
-__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
+// Tensor maps of q, k, v and dO, one per 64-column block of the head dim.
+struct Maps {
+  CUtensorMap q[2], k[2], v[2], dout[2];
+};
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copies rows [row0, row0 + 64) of one (batch, head) slice into a padded smem
-// tile; rows past `rows` are zero-filled. Only the d real columns are copied.
-__device__ __forceinline__ void load_tile(bf16* tile, int ld, const bf16* base,
-                                          int64_t row_stride, int row0, int rows, int d) {
-  const int chunks = d / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBlock * chunks; c += kThreads) {
-    const int r = c / chunks;
-    const int col = (c - r * chunks) * 8;
-    const bool valid = row0 + r < rows;
-    const bf16* src = valid ? base + (int64_t)(row0 + r) * row_stride + col : base;
-    cp_async_16(tile + r * ld + col, src, valid);
+// D(64 x 64) = A B^T over ceil(d/16) k-steps, A and B K-major 64-row tiles;
+// a k-step past column 64 is in the second column block of both.
+template <int DK16, int ABlockBytes>
+__device__ __forceinline__ void issue_over_d(float (&acc)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < DK16; ++ks) {
+    const uint32_t col = (ks % 4) * 32;
+    wgmma_ss_n64<0, 0>(acc, smem_desc(a + (ks / 4) * ABlockBytes + col),
+                       smem_desc(b + (ks / 4) * kTileBytes + col), ks > 0);
   }
 }
 
-// Zeroes the head-dim padding columns [d, DP) of `tiles` consecutive tiles;
-// cp.async never writes them.
-template <int DP>
-__device__ __forceinline__ void zero_padding(bf16* tiles, int ntiles, int d) {
-  constexpr int LD = DP + kPad;
-  if (d >= DP) return;
-  const int padc = DP - d;
-  for (int i = threadIdx.x; i < ntiles * kBlock * padc; i += kThreads) {
-    const int r = i / padc;
-    tiles[r * LD + d + (i - r * padc)] = __float2bfloat16(0.f);
-  }
-}
-
-// A fragments (16 rows x DP, row-major) of rows [row, row + 16) of a tile.
-template <int KCH>
-__device__ __forceinline__ void load_a(uint32_t (&f)[KCH][4], const bf16* tile, int ld, int row,
-                                       int g, int t) {
-  const bf16* p = tile + (row + g) * ld + 2 * t;
+// acc[kb] += X Y over the tile's 64 query rows: X (64 keys x 64 queries) in
+// registers as bf16 A fragments, Y (queries x d) the MN-major Q or dO tile.
+template <int KB>
+__device__ __forceinline__ void issue_over_queries(float (&acc)[KB][32], const uint32_t (&x)[16],
+                                                   uint32_t y) {
 #pragma unroll
-  for (int kc = 0; kc < KCH; ++kc) {
-    f[kc][0] = lds32(p + kc * 16);
-    f[kc][1] = lds32(p + 8 * ld + kc * 16);
-    f[kc][2] = lds32(p + kc * 16 + 8);
-    f[kc][3] = lds32(p + 8 * ld + kc * 16 + 8);
-  }
-}
-
-// c[nt] = A x B^T for the 32 streamed rows [row0, row0 + 32) of `tile`:
-// A is this warp's 16 rows (registers), B's rows are the streamed rows, and the
-// contraction runs over the head dim (B read as a col-major operand).
-template <int KCH>
-__device__ __forceinline__ void product_nt(float (&c)[kHalf / 8][4], const uint32_t (&a)[KCH][4],
-                                           const bf16* tile, int ld, int row0, int g, int t) {
+  for (int kk = 0; kk < kBlockM / 16; ++kk) {
 #pragma unroll
-  for (int nt = 0; nt < kHalf / 8; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-    const bf16* b = tile + (row0 + nt * 8 + g) * ld + 2 * t;
-#pragma unroll
-    for (int kc = 0; kc < KCH; ++kc) mma_bf16(c[nt], a[kc], lds32(b + kc * 16), lds32(b + kc * 16 + 8));
-  }
-}
-
-// acc += X Y for X (16 x 32, the accumulator layout of product_nt, re-packed
-// as bf16 A fragments) and Y the streamed rows [row0, row0 + 32) of `tile`
-// (32 x DP): the contraction runs over the sequence, so Y is read transposed.
-template <int DT>
-__device__ __forceinline__ void product_tn(float (&acc)[DT][4], const float (&x)[kHalf / 8][4],
-                                           const bf16* tile, int ld, int row0, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < kHalf / 16; ++kc) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
-    a[1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
-    a[2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-    a[3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
-    const bf16* row = tile + (row0 + kc * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
-#pragma unroll
-    for (int dt = 0; dt < DT; dt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, row + dt * 8);
-      mma_bf16(acc[dt], a, b[0], b[1]);
-      mma_bf16(acc[dt + 1], a, b[2], b[3]);
+    for (int kb = 0; kb < KB; ++kb) {
+      wgmma_rs_n64(acc[kb], x[4 * kk], x[4 * kk + 1], x[4 * kk + 2], x[4 * kk + 3],
+                   smem_desc(y + kb * kTileBytes + kk * 16 * kRowBytes));
     }
   }
 }
 
-// Stores this warp's 16 x d accumulator rows (times `mul`) as bf16.
-template <int DT>
-__device__ __forceinline__ void store_rows(bf16* base, int64_t row_stride, const float (&acc)[DT][4],
-                                           float mul, int row, int rows, int d, int g, int t) {
+// Adds consumer warpgroup c's dQ partial of query tile j (64 rows x d, f32,
+// in the wgmma accumulator layout) into the accumulator rows of that tile:
+// through the f32 tile at dqf and one bulk reduce-add issued by the
+// warpgroup's first thread.
+template <int KB>
+__device__ __forceinline__ void add_dq(const Params& p, const float (&dq)[KB][32], int bh,
+                                       int n_q, int j, uint32_t dqf, int c, int tid) {
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  // the tile's previous bulk reduce has read it (named barrier 2 + c: this warpgroup)
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int rr = row + g + 8 * r;
-    if (rr >= rows) continue;
-    bf16* out = base + (int64_t)rr * row_stride;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      if (col < d) {
-        *reinterpret_cast<uint32_t*>(out + col) =
-            pack_bf16(acc[dt][2 * r] * mul, acc[dt][2 * r + 1] * mul);
+    for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = kb * 64 + 8 * jj + 2 * t;
+        if (col < p.d) {
+          asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                           dqf + ((warp * 16 + g + 8 * r) * p.d + col) * 4),
+                       "f"(dq[kb][4 * jj + 2 * r]), "f"(dq[kb][4 * jj + 2 * r + 1])
+                       : "memory");
+        }
       }
     }
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+  if (tid == 0) {
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+        "cp.async.bulk.commit_group;\n" ::"l"(
+            p.dq_acc + (static_cast<int64_t>(bh) * n_q + j) * kBlockM * p.d),
+        "r"(dqf), "r"(kBlockM * p.d * 4)
+        : "memory");
+  }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const Args args) {
-  constexpr int LD = DP + kPad;
-  constexpr int KCH = DP / 16;
-  constexpr int DT = DP / 8;
-  constexpr int NT = kHalf / 8;
+template <int NC, int DK16>
+__global__ void __launch_bounds__(Config<NC, DK16>::kThreads, Config<NC, DK16>::kMinBlocks)
+flash_bwd_kernel(const __grid_constant__ Maps maps, const Params p) {
+  using C = Config<NC, DK16>;
+  constexpr int KB = C::KB;
+  constexpr int ST = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = base;
+  const uint32_t s_v = base + C::kKBytes;
+  const uint32_t s_stage = base + C::kStageOffset;  // stage s: Q at s * kStageBytes, dO after it
+  const uint32_t s_ds = base + C::kDSOffset;        // two buffers of dS^T
+  const uint32_t s_stats = base + C::kStatsOffset;
+  const float* stats_s = reinterpret_cast<const float*>(smem_raw + (s_stats - raw));
+  const uint32_t bar_full = base + C::kBarOffset;
+  const uint32_t bar_empty = bar_full + 8 * ST;
+  const uint32_t bar_kv = bar_empty + 8 * ST;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kBlock * LD;
-  bf16* o_s = do_s + kBlock * LD;
-  bf16* kv_s = o_s + kBlock * LD;  // [stage][K|V][64][LD]
-  float* delta_s = reinterpret_cast<float*>(kv_s + 4 * kBlock * LD);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
+  const int n_q = (p.sq + kBlockM - 1) / kBlockM;
   const int bh = blockIdx.y;
-  const int b = bh / args.heads;
-  const int h = bh - b * args.heads;
-  const int m0 = blockIdx.x * kBlock;
-  const int d = args.d;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int n0 = blockIdx.x * C::kKeys;
 
-  const bf16* qg = args.q + b * args.sb[TQ] + h * args.sh[TQ];
-  const bf16* kg = args.k + b * args.sb[TK] + h * args.sh[TK];
-  const bf16* vg = args.v + b * args.sb[TV] + h * args.sh[TV];
-  const bf16* og = args.o + b * args.sb[TO] + h * args.sh[TO];
-  const bf16* dog = args.dout + b * args.sb[TDO] + h * args.sh[TDO];
-
-  zero_padding<DP>(q_s, 7, d);
-
-  const int n_tiles = (args.sk + kBlock - 1) / kBlock;
-  load_tile(q_s, LD, qg, args.ss[TQ], m0, args.sq, d);
-  load_tile(do_s, LD, dog, args.ss[TDO], m0, args.sq, d);
-  load_tile(o_s, LD, og, args.ss[TO], m0, args.sq, d);
-  load_tile(kv_s, LD, kg, args.ss[TK], 0, args.sk, d);
-  load_tile(kv_s + kBlock * LD, LD, vg, args.ss[TV], 0, args.sk, d);
-  cp_async_commit();
-
-  uint32_t qf[KCH][4], dof[KCH][4];
-  float dq_acc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq_acc[i][j] = 0.f;
-  float lse2[2], dlt[2];  // rows g and g + 8: LSE in the log2 domain, delta
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      bf16* nxt = kv_s + ((j + 1) & 1) * 2 * kBlock * LD;
-      load_tile(nxt, LD, kg, args.ss[TK], (j + 1) * kBlock, args.sk, d);
-      load_tile(nxt + kBlock * LD, LD, vg, args.ss[TV], (j + 1) * kBlock, args.sk, d);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // TMA writes only the d real columns of each 128-byte row. Where d is an
+  // odd multiple of 8, the 8 columns up to the last k-step over d are never
+  // written: zero them once in K, V and the Q and dO tiles of every stage.
+  if (p.d % 16 == 8) {
+    const uint32_t blk = p.d / 64, chunk = (p.d % 64) / 8;
+    zero_chunk(s_k + blk * C::kKVBlockBytes, C::kKeys, chunk, threadIdx.x, C::kThreads);
+    zero_chunk(s_v + blk * C::kKVBlockBytes, C::kKeys, chunk, threadIdx.x, C::kThreads);
+    for (int s = 0; s < 2 * ST; ++s) {
+      zero_chunk(s_stage + (s / 2) * C::kStageBytes + (s % 2) * C::kQBytes + blk * kTileBytes,
+                 kBlockM, chunk, threadIdx.x, C::kThreads);
     }
-    __syncthreads();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * NC);  // lane 0 of every consumer warp
+    }
+    mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    if (j == 0) {
-      // delta = rowsum(dO * O) in f32: two threads per row, odd/even column pairs
-      {
-        const int r = tid >> 1;
-        const bf16* dor = do_s + r * LD;
-        const bf16* orow = o_s + r * LD;
-        float acc = 0.f;
-        for (int c = (tid & 1) * 2; c < d; c += 4) {
-          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dor + c));
-          const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + c));
-          acc += x.x * y.x + x.y * y.y;
+  // the warpgroup index, through a shuffle so that ptxas knows it is
+  // warp-uniform: a wgmma on a path it thinks divergent is serialised
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: one thread loads K and V, then keeps the ring of Q/dO tiles full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_kv, 2 * C::kKeys * p.d * 2);
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        tma_load(s_k + kb * C::kKVBlockBytes, &maps.k[kb], p.mk, bar_kv, kb * 64, n0, h, b);
+        tma_load(s_v + kb * C::kKVBlockBytes, &maps.v[kb], p.mv, bar_kv, kb * 64, n0, h, b);
+      }
+      const float* stats = p.stats + static_cast<int64_t>(bh) * n_q * 2 * kBlockM;
+      for (int i = 0; i < n_q; ++i) {
+        const int s = i % ST;
+        if (i >= ST) mbar_wait(bar_empty + 8 * s, ((i / ST) - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        const uint32_t q_s = s_stage + s * C::kStageBytes;
+        mbar_expect_tx(full, 2 * kBlockM * p.d * 2 + kStatsBytes);
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          tma_load(q_s + kb * kTileBytes, &maps.q[kb], p.mq, full, kb * 64, i * kBlockM, h, b);
+          tma_load(q_s + C::kQBytes + kb * kTileBytes, &maps.dout[kb], p.mdo, full, kb * 64,
+                   i * kBlockM, h, b);
         }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        if ((tid & 1) == 0) {
-          delta_s[r] = acc;
-          if (m0 + r < args.sq) args.delta[(int64_t)bh * args.sq + m0 + r] = acc;
+        bulk_load(s_stats + s * kStatsBytes, stats + i * 2 * kBlockM, kStatsBytes, full);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const uint32_t k_wg = s_k + c * 64 * kRowBytes;  // this warpgroup's 64 keys
+    const uint32_t v_wg = s_v + c * 64 * kRowBytes;
+    // the thread's accumulator rows are keys key_lo and key_lo + 8
+    const int key_lo = n0 + c * 64 + warp * 16 + g;
+    const bool past0 = key_lo >= p.sk, past1 = key_lo + 8 >= p.sk;
+
+    float dv[KB][32], dk[KB][32];
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dv[kb][i] = dk[kb][i] = 0.f;
+    float s[32], dp[32];
+    uint32_t pr[16], dsr[16];  // P^T and dS^T as bf16 pairs, in A-fragment order
+    const uint32_t dqf = base + C::kDQFOffset + c * C::kDQFBytes;  // this consumer's f32 dQ tile
+
+    mbar_wait(bar_kv, 0);
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % ST;
+      const uint32_t q_s = s_stage + st * C::kStageBytes;
+      const uint32_t do_s = q_s + C::kQBytes;
+      mbar_wait(bar_full + 8 * st, (i / ST) & 1);
+      reg_fence(s);
+      reg_fence(dp);
+      wgmma_fence();
+      issue_over_d<DK16, C::kKVBlockBytes>(s, k_wg, q_s);  // S^T = K Q^T
+      wgmma_commit();
+      issue_over_d<DK16, C::kKVBlockBytes>(dp, v_wg, do_s);  // dP^T = V dO^T
+      wgmma_commit();
+
+      // s[4j + e]: key row key_lo + 8 (e >> 1), query column 8j + 2t + (e & 1)
+      const float* lse2 = stats_s + st * 2 * kBlockM;
+      const float* dlt = lse2 + kBlockM;
+      wgmma_wait<1>();
+      reg_fence(s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = ex2(fmaf(s[4 * j + e], p.scale_log2, -((e & 1) ? l.y : l.x)));
+          s[4 * j + e] = ((e >> 1) ? past1 : past0) ? 0.f : pv;
         }
       }
-      __syncthreads();
-      load_a<KCH>(qf, q_s, LD, warp * 16, g, t);
-      load_a<KCH>(dof, do_s, LD, warp * 16, g, t);
+      wgmma_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+#pragma unroll
+      for (int k2 = 0; k2 < 16; ++k2) {
+        pr[k2] = pack_bf16(s[2 * k2], s[2 * k2 + 1]);
+        dsr[k2] = pack_bf16(dp[2 * k2], dp[2 * k2 + 1]);
+      }
+
+      // dS^T into this tile's buffer: row = key, 64 query columns, swizzled
+      const uint32_t ds_buf = s_ds + (i & 1) * C::kDSBytes;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = m0 + warp * 16 + g + 8 * r;
-        // rows past Sq: Q and dO are zero, so their dS is 0 whatever P is
-        lse2[r] = row < args.sq ? args.lse[(int64_t)bh * args.sq + row] * kLog2e : 0.f;
-        dlt[r] = delta_s[warp * 16 + g + 8 * r];
-      }
-    }
-
-    const bf16* k_s = kv_s + (j & 1) * 2 * kBlock * LD;
-    const bf16* v_s = k_s + kBlock * LD;
-    const int key0 = j * kBlock;
-    const bool ragged = key0 + kBlock > args.sk;
-
+        const uint32_t row = c * 64 + warp * 16 + g + 8 * r;
 #pragma unroll
-    for (int half = 0; half < kBlock / kHalf; ++half) {
-      const int r0 = half * kHalf;
-      float s[NT][4], dp[NT][4];
-      product_nt<KCH>(s, qf, k_s, LD, r0, g, t);   // S = Q K^T
-      product_nt<KCH>(dp, dof, v_s, LD, r0, g, t); // dP = dO V^T
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2f(s[nt][e] * args.scale_log2 - lse2[e >> 1]);
-          if (ragged && key0 + r0 + nt * 8 + 2 * t + (e & 1) >= args.sk) p = 0.f;
-          s[nt][e] = p * (dp[nt][e] - dlt[e >> 1]);  // dS
+        for (int j = 0; j < 8; ++j) {
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(ds_buf + row * kRowBytes +
+                                                          ((j ^ (row & 7)) << 4) + 4 * t),
+                       "r"(dsr[2 * j + r])
+                       : "memory");
         }
       }
-      product_tn<DT>(dq_acc, s, k_s, LD, r0, lane);  // dQ += dS K
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
-  }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      // every consumer's dS^T is in place (and the dQ product of tile i - 1,
+      // which read the other buffer, is done)
+      asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
 
-  store_rows<DT>(args.dq + b * args.sb[TDQ] + h * args.sh[TDQ], args.ss[TDQ], dq_acc, args.scale,
-                 m0 + warp * 16, args.sq, d, g, t);
+      reg_fence(dv);
+      reg_fence(dk);
+      reg_fence(pr);
+      reg_fence(dsr);
+      wgmma_fence();
+      issue_over_queries<KB>(dv, pr, do_s);  // dV += P^T dO
+      issue_over_queries<KB>(dk, dsr, q_s);  // dK += dS^T Q
+      wgmma_commit();
+
+      // the warpgroups take turns to compute dQ_tile over the CTA's keys, with
+      // the whole wgmma stage on this (warp-uniform) branch
+      if (NC == 1 || i % NC == c) {
+        if constexpr (KB == 2) {  // free P^T and dS^T before dQ's 64 accumulators
+          wgmma_wait<0>();
+          reg_fence(pr);
+          reg_fence(dsr);
+        }
+        // dQ_tile = dS K: A = dS^T's buffer, B = K, both MN-major
+        float dq[KB][32];
+        reg_fence(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < C::kKeys / 16; ++ks) {
+#pragma unroll
+          for (int kb = 0; kb < KB; ++kb) {
+            wgmma_ss_n64<1, 1>(dq[kb], smem_desc(ds_buf + ks * 16 * kRowBytes),
+                               smem_desc(s_k + kb * C::kKVBlockBytes + ks * 16 * kRowBytes),
+                               ks > 0);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dq);
+        reg_fence(dv);
+        reg_fence(dk);
+        reg_fence(pr);
+        reg_fence(dsr);
+        add_dq<KB>(p, dq, bh, n_q, i, dqf, c, tid);
+      } else {
+        wgmma_wait<0>();
+        reg_fence(dv);
+        reg_fence(dk);
+        reg_fence(pr);
+        reg_fence(dsr);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);  // this stage's Q, dO and stats are read
+    }
+    if (tid == 0) {  // this warpgroup's bulk reduces are complete
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    }
+
+    // epilogue: dK (scaled) and dV of the thread's two key rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key_lo + 8 * r;
+      if (key >= p.sk) continue;
+      __nv_bfloat16* dkrow = p.dk + b * p.dk_sb + h * p.dk_sh + static_cast<int64_t>(key) * p.dk_ss;
+      __nv_bfloat16* dvrow = p.dv + b * p.dv_sb + h * p.dv_sh + static_cast<int64_t>(key) * p.dv_ss;
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = kb * 64 + 8 * j + 2 * t;
+          if (col < p.d) {
+            *reinterpret_cast<uint32_t*>(dkrow + col) =
+                pack_bf16(dk[kb][4 * j + 2 * r] * p.scale, dk[kb][4 * j + 2 * r + 1] * p.scale);
+            *reinterpret_cast<uint32_t*>(dvrow + col) =
+                pack_bf16(dv[kb][4 * j + 2 * r], dv[kb][4 * j + 2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const Args args) {
-  constexpr int LD = DP + kPad;
-  constexpr int KCH = DP / 16;
-  constexpr int DT = DP / 8;
-  constexpr int NT = kHalf / 8;
+struct PrepParams {
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  const float* lse;  // (B*H, Sq)
+  float* stats;
+  float* dq_acc;
+  int64_t o_sb, o_sh, o_ss, do_sb, do_sh, do_ss;
+  int heads, sq, d;
+};
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kBlock * LD;
-  bf16* qd_s = v_s + kBlock * LD;  // [stage][Q|dO][64][LD]
-  float* ld_s = reinterpret_cast<float*>(qd_s + 4 * kBlock * LD);  // [stage][LSE|delta][64]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
+// One CTA per 64-row query tile of one (batch, head): four threads per row
+// sum dO * O over d in f32.
+__global__ void __launch_bounds__(256) flash_bwd_prep_kernel(const PrepParams p) {
+  const int tile = blockIdx.x;
+  const int n_q = gridDim.x;
   const int bh = blockIdx.y;
-  const int b = bh / args.heads;
-  const int h = bh - b * args.heads;
-  const int n0 = blockIdx.x * kBlock;
-  const int d = args.d;
-
-  const bf16* qg = args.q + b * args.sb[TQ] + h * args.sh[TQ];
-  const bf16* kg = args.k + b * args.sb[TK] + h * args.sh[TK];
-  const bf16* vg = args.v + b * args.sb[TV] + h * args.sh[TV];
-  const bf16* dog = args.dout + b * args.sb[TDO] + h * args.sh[TDO];
-  const float* lseg = args.lse + (int64_t)bh * args.sq;
-  const float* deltag = args.delta + (int64_t)bh * args.sq;
-
-  zero_padding<DP>(k_s, 6, d);
-
-  // LSE and delta of query rows [row0, row0 + 64); zero past Sq, where Q and
-  // dO are zero too, so those rows add exactly nothing
-  auto load_stats = [&](float* dst, int row0) {
-    const int r = tid & (kBlock - 1);
-    const bool valid = row0 + r < args.sq;
-    const float* src = tid < kBlock ? lseg : deltag;
-    cp_async_4(dst + (tid < kBlock ? 0 : kBlock) + r, valid ? src + row0 + r : src, valid);
-  };
-
-  const int n_tiles = (args.sq + kBlock - 1) / kBlock;
-  load_tile(k_s, LD, kg, args.ss[TK], n0, args.sk, d);
-  load_tile(v_s, LD, vg, args.ss[TV], n0, args.sk, d);
-  load_tile(qd_s, LD, qg, args.ss[TQ], 0, args.sq, d);
-  load_tile(qd_s + kBlock * LD, LD, dog, args.ss[TDO], 0, args.sq, d);
-  load_stats(ld_s, 0);
-  cp_async_commit();
-
-  uint32_t kf[KCH][4], vf[KCH][4];
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) {
-      const int st = (i + 1) & 1;
-      bf16* nxt = qd_s + st * 2 * kBlock * LD;
-      load_tile(nxt, LD, qg, args.ss[TQ], (i + 1) * kBlock, args.sq, d);
-      load_tile(nxt + kBlock * LD, LD, dog, args.ss[TDO], (i + 1) * kBlock, args.sq, d);
-      load_stats(ld_s + st * 2 * kBlock, (i + 1) * kBlock);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int r = threadIdx.x / 4;
+  const int part = threadIdx.x % 4;
+  const int row = tile * kBlockM + r;
+  float acc = 0.f;
+  if (row < p.sq) {
+    const __nv_bfloat16* orow = p.o + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_ss;
+    const __nv_bfloat16* drow =
+        p.dout + b * p.do_sb + h * p.do_sh + static_cast<int64_t>(row) * p.do_ss;
+    for (int col = 2 * part; col < p.d; col += 8) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + col));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + col));
+      acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
     }
-    __syncthreads();
-
-    if (i == 0) {
-      load_a<KCH>(kf, k_s, LD, warp * 16, g, t);
-      load_a<KCH>(vf, v_s, LD, warp * 16, g, t);
-    }
-
-    const bf16* q_t = qd_s + (i & 1) * 2 * kBlock * LD;
-    const bf16* do_t = q_t + kBlock * LD;
-    const float* lse_t = ld_s + (i & 1) * 2 * kBlock;
-    const float* dl_t = lse_t + kBlock;
-
-#pragma unroll
-    for (int half = 0; half < kBlock / kHalf; ++half) {
-      const int r0 = half * kHalf;
-      float pt[NT][4], dst[NT][4];
-      product_nt<KCH>(pt, kf, q_t, LD, r0, g, t);    // S^T = K Q^T
-      product_nt<KCH>(dst, vf, do_t, LD, r0, g, t);  // dP^T = V dO^T
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = r0 + nt * 8 + 2 * t + (e & 1);  // query: the column
-          const float p = exp2f(pt[nt][e] * args.scale_log2 - lse_t[qi] * kLog2e);
-          pt[nt][e] = p;                           // P^T
-          dst[nt][e] = p * (dst[nt][e] - dl_t[qi]);  // dS^T
-        }
-      }
-      product_tn<DT>(dv_acc, pt, do_t, LD, r0, lane);  // dV += P^T dO
-      product_tn<DT>(dk_acc, dst, q_t, LD, r0, lane);  // dK += dS^T Q
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
   }
-
-  store_rows<DT>(args.dk + b * args.sb[TDK] + h * args.sh[TDK], args.ss[TDK], dk_acc, args.scale,
-                 n0 + warp * 16, args.sk, d, g, t);
-  store_rows<DT>(args.dv + b * args.sb[TDV] + h * args.sh[TDV], args.ss[TDV], dv_acc, 1.f,
-                 n0 + warp * 16, args.sk, d, g, t);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  float* st = p.stats + (static_cast<int64_t>(bh) * n_q + tile) * 2 * kBlockM;
+  if (part == 0) {
+    st[r] = row < p.sq ? p.lse[static_cast<int64_t>(bh) * p.sq + row] * kLog2e : 0.f;
+    st[kBlockM + r] = acc;
+  }
+  float4* z = reinterpret_cast<float4*>(p.dq_acc +
+                                        (static_cast<int64_t>(bh) * n_q + tile) * kBlockM * p.d);
+  for (int i = threadIdx.x; i < kBlockM * p.d / 4; i += blockDim.x) {
+    z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
-template <int DP>
-cudaError_t launch_dq(const Args& args, int bh, cudaStream_t stream) {
-  const int smem = 7 * kBlock * (DP + kPad) * (int)sizeof(bf16) + kBlock * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+struct ConvertParams {
+  const float* dq_acc;
+  __nv_bfloat16* dq;
+  int64_t sb, sh, ss;
+  int heads, sq, d;
+  float scale;
+};
+
+// One CTA per 64-row query tile of one (batch, head), 8 columns a thread.
+__global__ void __launch_bounds__(256) flash_bwd_dq_convert_kernel(const ConvertParams p) {
+  const int tile = blockIdx.x;
+  const int n_q = gridDim.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int chunks = p.d / 8;
+  const float* acc = p.dq_acc + (static_cast<int64_t>(bh) * n_q + tile) * kBlockM * p.d;
+  for (int i = threadIdx.x; i < kBlockM * chunks; i += blockDim.x) {
+    const int r = i / chunks;
+    const int col = (i - r * chunks) * 8;
+    const int row = tile * kBlockM + r;
+    if (row >= p.sq) continue;
+    const float4 x = *reinterpret_cast<const float4*>(acc + r * p.d + col);
+    const float4 y = *reinterpret_cast<const float4*>(acc + r * p.d + col + 4);
+    uint4 out;
+    out.x = pack_bf16(x.x * p.scale, x.y * p.scale);
+    out.y = pack_bf16(x.z * p.scale, x.w * p.scale);
+    out.z = pack_bf16(y.x * p.scale, y.y * p.scale);
+    out.w = pack_bf16(y.z * p.scale, y.w * p.scale);
+    *reinterpret_cast<uint4*>(p.dq + b * p.sb + h * p.sh + static_cast<int64_t>(row) * p.ss +
+                              col) = out;
+  }
+}
+
+template <int NC, int DK16>
+cudaError_t launch(const Maps& maps, const Params& p, int bh, cudaStream_t stream) {
+  using C = Config<NC, DK16>;
+  static std::atomic<uint64_t> raised{0};
+  const cudaError_t err = raise_smem_once(raised, flash_bwd_kernel<NC, DK16>, C::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((args.sq + kBlock - 1) / kBlock, bh);
-  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(args);
+  const dim3 grid((p.sk + C::kKeys - 1) / C::kKeys, bh);
+  flash_bwd_kernel<NC, DK16><<<grid, C::kThreads, C::kSmemBytes, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_dkv(const Args& args, int bh, cudaStream_t stream) {
-  const int smem = 6 * kBlock * (DP + kPad) * (int)sizeof(bf16) + 4 * kBlock * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((args.sk + kBlock - 1) / kBlock, bh);
-  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(args);
-  return cudaGetLastError();
+template <int NC>
+cudaError_t launch_d(int dk16, const Maps& maps, const Params& p, int bh, cudaStream_t st) {
+  switch (dk16) {
+    case 1: return launch<NC, 1>(maps, p, bh, st);
+    case 2: return launch<NC, 2>(maps, p, bh, st);
+    case 3: return launch<NC, 3>(maps, p, bh, st);
+    case 4: return launch<NC, 4>(maps, p, bh, st);
+    case 5: return launch<NC, 5>(maps, p, bh, st);
+    case 6: return launch<NC, 6>(maps, p, bh, st);
+    case 7: return launch<NC, 7>(maps, p, bh, st);
+    case 8: return launch<NC, 8>(maps, p, bh, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-template <bool DQ_KERNEL>
-int dispatch(const Args& args, int bh, cudaStream_t st) {
-#define PNPI_CASE(DP) \
-  case DP:            \
-    return (int)(DQ_KERNEL ? launch_dq<DP>(args, bh, st) : launch_dkv<DP>(args, bh, st));
-  switch ((args.d + 15) / 16 * 16) {
-    PNPI_CASE(16)
-    PNPI_CASE(32)
-    PNPI_CASE(48)
-    PNPI_CASE(64)
-    PNPI_CASE(80)
-    PNPI_CASE(96)
-    PNPI_CASE(112)
-    PNPI_CASE(128)
-    default: return (int)cudaErrorInvalidValue;
+template <int NC>
+int smem_bytes_d(int dk16) {
+  switch ((dk16 + 3) / 4) {  // only the column blocks change the footprint
+    case 1: return Config<NC, 4>::kSmemBytes;
+    case 2: return Config<NC, 8>::kSmemBytes;
+    default: return -1;
   }
-#undef PNPI_CASE
 }
 
-int run(bool dq_kernel, void* const* ptrs, const int64_t* strides, int batch, int heads, int sq,
-        int sk, int d, float scale, void* stream) {
-  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 128 || d % 8 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Args args;
-  args.q = static_cast<const bf16*>(ptrs[0]);
-  args.k = static_cast<const bf16*>(ptrs[1]);
-  args.v = static_cast<const bf16*>(ptrs[2]);
-  args.o = static_cast<const bf16*>(ptrs[3]);
-  args.dout = static_cast<const bf16*>(ptrs[4]);
-  args.dq = static_cast<bf16*>(ptrs[5]);
-  args.dk = static_cast<bf16*>(ptrs[6]);
-  args.dv = static_cast<bf16*>(ptrs[7]);
-  args.lse = static_cast<const float*>(ptrs[8]);
-  args.delta = static_cast<float*>(ptrs[9]);
-  for (int i = 0; i < kTensors; ++i) {
-    args.sb[i] = strides[3 * i];
-    args.sh[i] = strides[3 * i + 1];
-    args.ss[i] = strides[3 * i + 2];
-  }
-  args.heads = heads;
-  args.sq = sq;
-  args.sk = sk;
-  args.d = d;
-  args.scale = scale;
-  args.scale_log2 = scale * kLog2e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dq_kernel ? dispatch<true>(args, batch * heads, st)
-                   : dispatch<false>(args, batch * heads, st);
+bool takes(int batch, int heads, int sq, int d) {
+  return batch > 0 && heads > 0 && sq > 0 && d > 0 && d <= 128 && d % 8 == 0;
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. `ptrs` holds ten device pointers in the
-// order q, k, v, o, do, dq, dk, dv (bf16), lse, delta (f32, contiguous
-// (batch*heads, sq)); `strides` holds, for the first eight in that order, their
-// element strides over (batch, head, seq); each last dim must be contiguous.
-// The dq kernel reads q, k, v, o, do, lse and writes dq and delta; the dkv
-// kernel reads q, k, v, do, lse, delta and writes dk and dv. Unused slots may
-// be null. Each returns a cudaError_t (0 on success); an unsupported head dim
-// returns cudaErrorInvalidValue without launching.
-extern "C" int pnpi_flash_attention_bwd_dq_bf16(void* const* ptrs, const int64_t* strides,
-                                                int batch, int heads, int sq, int sk, int d,
-                                                float scale, void* stream) {
-  return run(true, ptrs, strides, batch, heads, sq, sk, d, scale, stream);
+// C interface, loaded with ctypes. Pointers are device pointers, bf16 tensors
+// 16-byte aligned; strides are in elements over (batch, head, seq), each last
+// dim contiguous, other strides of the TMA-read tensors (q, k, v, dout)
+// multiples of 8. stats is a contiguous f32 (batch*heads, n_q, 2, 64) buffer
+// and dq_acc a contiguous f32 (batch*heads, 64 * n_q, d) one, n_q =
+// ceil(sq / 64); lse is the forward's contiguous f32 (batch*heads, sq). Each
+// returns a cudaError_t (0 on success); inputs it does not take, or tensor
+// maps the driver refuses, return cudaErrorInvalidValue without launching.
+
+// delta and LSE * log2(e) into stats, zeroes dq_acc.
+extern "C" int pnpi_flash_attention_bwd_prep_bf16(const void* o, const void* dout,
+                                                  const void* lse, void* stats, void* dq_acc,
+                                                  int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                                                  int64_t do_sb, int64_t do_sh, int64_t do_ss,
+                                                  int batch, int heads, int sq, int d,
+                                                  void* stream) {
+  if (!takes(batch, heads, sq, d)) return (int)cudaErrorInvalidValue;
+  PrepParams p{static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+               static_cast<const float*>(lse), static_cast<float*>(stats),
+               static_cast<float*>(dq_acc), o_sb, o_sh, o_ss, do_sb, do_sh, do_ss, heads, sq, d};
+  const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * heads);
+  flash_bwd_prep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
-extern "C" int pnpi_flash_attention_bwd_dkv_bf16(void* const* ptrs, const int64_t* strides,
-                                                 int batch, int heads, int sq, int sk, int d,
-                                                 float scale, void* stream) {
-  return run(false, ptrs, strides, batch, heads, sq, sk, d, scale, stream);
+// dK, dV, and the dQ partial sums added into dq_acc. tile_keys (64 or 128)
+// is the keys per CTA.
+extern "C" int pnpi_flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* dout, const void* stats,
+    void* dq_acc, void* dk, void* dv, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
+    int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t do_sb,
+    int64_t do_sh, int64_t do_ss, int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, int64_t dv_sb,
+    int64_t dv_sh, int64_t dv_ss, int batch, int heads, int sq, int sk, int d, int tile_keys,
+    float scale, void* stream) {
+  if (!takes(batch, heads, sq, d) || sk <= 0 || (tile_keys != 64 && tile_keys != 128)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Maps maps;
+  Params p;
+  for (int kb = 0; kb < (d + 63) / 64; ++kb) {
+    const int cols = d - 64 * kb < 64 ? d - 64 * kb : 64;
+    if (!make_map(&maps.q[kb], &p.mq, q, q_sb, q_sh, q_ss, batch, heads, sq, d, cols, kBlockM) ||
+        !make_map(&maps.dout[kb], &p.mdo, dout, do_sb, do_sh, do_ss, batch, heads, sq, d, cols,
+                  kBlockM) ||
+        !make_map(&maps.k[kb], &p.mk, k, k_sb, k_sh, k_ss, batch, heads, sk, d, cols,
+                  tile_keys) ||
+        !make_map(&maps.v[kb], &p.mv, v, v_sb, v_sh, v_ss, batch, heads, sk, d, cols,
+                  tile_keys)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  p.stats = static_cast<const float*>(stats);
+  p.dq_acc = static_cast<float*>(dq_acc);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dk_sb = dk_sb;
+  p.dk_sh = dk_sh;
+  p.dk_ss = dk_ss;
+  p.dv_sb = dv_sb;
+  p.dv_sh = dv_sh;
+  p.dv_ss = dv_ss;
+  p.heads = heads;
+  p.sq = sq;
+  p.sk = sk;
+  p.d = d;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  const int bh = batch * heads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int dk16 = (d + 15) / 16;
+  return (int)(tile_keys == 128 ? launch_d<2>(dk16, maps, p, bh, st)
+                                : launch_d<1>(dk16, maps, p, bh, st));
+}
+
+// dq = bf16(scale * dq_acc) for the sq real rows.
+extern "C" int pnpi_flash_attention_bwd_dq_convert_bf16(const void* dq_acc, void* dq,
+                                                        int64_t dq_sb, int64_t dq_sh,
+                                                        int64_t dq_ss, int batch, int heads,
+                                                        int sq, int d, float scale,
+                                                        void* stream) {
+  if (!takes(batch, heads, sq, d)) return (int)cudaErrorInvalidValue;
+  ConvertParams p{static_cast<const float*>(dq_acc), static_cast<__nv_bfloat16*>(dq),
+                  dq_sb, dq_sh, dq_ss, heads, sq, d, scale};
+  const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * heads);
+  flash_bwd_dq_convert_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory in bytes of the main kernel's instantiation that
+// takes (tile_keys, d).
+extern "C" int pnpi_flash_attention_bwd_smem_bytes(int tile_keys, int d) {
+  if (d <= 0 || d > 128 || (tile_keys != 64 && tile_keys != 128)) return -1;
+  return tile_keys == 128 ? smem_bytes_d<2>((d + 15) / 16) : smem_bytes_d<1>((d + 15) / 16);
 }

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use into one shared library with
 a plain C interface, under ``build/torch_kernels/`` at the root of the
-checkout (listed in .gitignore). The file name carries a hash of the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time: the CPU tests import every module
-of the port on a machine without nvcc.
+checkout (listed in .gitignore). The file name carries a hash of the source,
+the headers of ``csrc/`` it may include and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing here runs at
+import time: the CPU tests import every module of the port on a machine
+without nvcc.
 """
 from __future__ import annotations
 
@@ -37,9 +38,15 @@ def nvcc() -> str:
     return path
 
 
+def nvcc_command(src: Path, out: Path) -> list:
+    """nvcc with the port's flags, ``csrc/`` on the include path."""
+    return [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -56,9 +63,9 @@ def build(names: Sequence[str]) -> Dict[str, float]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
+        procs[name] = (subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", Path(tmp)),
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True),
                        tmp, out, time.perf_counter())
     seconds, failures = {}, []
     for name, (proc, tmp, out, t0) in procs.items():

@@ -38,8 +38,7 @@ def load_old(src: Path, takes_tile: bool):
     """nvcc of the old source with the port's flags, loaded with ctypes."""
     out = ROOT / "build" / "old_flash_fwd" / "libold_flash_attention_fwd.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)], check=True,
-                   capture_output=True)
+    subprocess.run(build.nvcc_command(src, out), check=True, capture_output=True)
     fn = ctypes.CDLL(str(out)).pnpi_flash_attention_fwd_bf16
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fn.argtypes = [ptr] * 5 + [i64] * 12 + [i32] * (6 if takes_tile else 5) + [
