@@ -15,13 +15,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    SD1.4 pipeline at full width (random weights from a seed, bf16, 512², 50
    DDIM steps), a warm-up edit, a timed edit whose kernel launches are
    counted, and a per-phase timed edit whose latents are checked;
-5. drive the second path: ``P2PEditor("null-text-inversion+p2p", ...)`` on
-   the same pipeline: a warm-up edit at 2 DDIM steps, then one edit at 50
-   whose launches of every kernel are counted and whose phases are
-   timed to a synchronize each; the backward kernels run in its inner Adam
-   loop, which differentiates through the UNet; then one counted
+5. drive the batched path: ``BatchedDirectInversionP2P.edit_batch`` on 4
+   images (the same workload, the cake prompts), a warm-up batch and a timed
+   batch whose launches are counted, then each image through the
+   single-image editor and the uint8 difference of the two paths' panels,
+   and the checks that tell a fault of the batched path from the numerics
+   of another batch size (the reconstructions are the VAE round trip; with
+   a prompt pair per image, the images do not interact);
+6. drive null-text-inversion+p2p: a warm-up edit at 2 DDIM steps, then one
+   edit at 50 whose launches of every kernel are counted and whose phases
+   are timed to a synchronize each; the backward kernels run in its inner
+   Adam loop, which differentiates through the UNet; then one counted
    ``ddim+p2p`` edit;
-6. print one JSON line of kernel numbers, then the result line.
+7. one counted edit of each other P2P-family method group through
+   ``P2PEditor`` at 5 DDIM steps (negative-prompt inversion, ProxEdit,
+   the null-text and null-latent ablations, the guidance grid, the
+   DirectInversion ablations), the batched class on 2 images at 3 steps for
+   one method of each group (a prompt pair per image), and batched
+   null-text's per-image early stop (two images, one of which stops early);
+   every shape that these paths launched a kernel at must be one that phase
+   3 held against the plain version;
+8. print one JSON line of kernel numbers (launches of each kernel on every
+   path), the script's total seconds, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA it
 exits non-zero before printing any result.
@@ -67,6 +82,19 @@ FLASH_CASES = [
     ("edit_32x32", 4, 8, 1024, 1024, 80, True, True),
     ("d64_s1024", 1, 8, 1024, 1024, 64, False, False),
     ("ragged_cross", 1, 8, 1000, 77, 40, False, False),
+    # the batched editor at 4 images: 3 rows each in the DirectInversion
+    # scan (B.H 96), 4 in the CFG loops of ddim+p2p, negative-prompt and
+    # null-text (B.H 128)
+    ("batch4_scan_64x64", 12, 8, 4096, 4096, 40, True, True),
+    ("batch4_scan_32x32", 12, 8, 1024, 1024, 80, True, True),
+    ("batch4_cfg_64x64", 16, 8, 4096, 4096, 40, True, True),
+    ("batch4_cfg_32x32", 16, 8, 1024, 1024, 80, True, True),
+    # the batched class at 2 images (the other method groups): 3 rows each
+    # in the DirectInversion scans (B.H 48), 4 in the CFG loops (B.H 64)
+    ("batch2_scan_64x64", 6, 8, 4096, 4096, 40, True, True),
+    ("batch2_scan_32x32", 6, 8, 1024, 1024, 80, True, True),
+    ("batch2_cfg_64x64", 8, 8, 4096, 4096, 40, True, True),
+    ("batch2_cfg_32x32", 8, 8, 1024, 1024, 80, True, True),
 ] + EDGE_CASES
 FLASH_O_TOL = 1e-2      # |v| ~ N(0,1): O is a convex mix of v; bf16 rounding of O and P
 FLASH_LSE_RTOL = 1e-3   # f32 statistics on both sides
@@ -86,6 +114,12 @@ FLASH_BWD_CASES = [
     ("nulltext_32x32", 1, 8, 1024, 1024, 80, True, True),
     ("d64_s1024", 1, 8, 1024, 1024, 64, False, False),
     ("ragged_cross", 1, 8, 1000, 77, 40, False, False),
+    # batched null-text's inner loop at 2, 4 and 8 images (B.H 16, 32, 64)
+    ("nulltext_b2_64x64", 2, 8, 4096, 4096, 40, True, True),
+    ("nulltext_b2_32x32", 2, 8, 1024, 1024, 80, True, True),
+    ("nulltext_b4_64x64", 4, 8, 4096, 4096, 40, True, True),
+    ("nulltext_b4_32x32", 4, 8, 1024, 1024, 80, True, True),
+    ("nulltext_b8_64x64", 8, 8, 4096, 4096, 40, True, True),
 ] + EDGE_CASES
 # relative to max |plain|: P and dS are rounded to bf16 before their products
 # (as the TPU kernels round them) and dQ/dK/dV are stored in bf16
@@ -380,9 +414,9 @@ NULL_TEXT_STEPS = 50  # DDIM steps of the counted null-text edit
 NULL_TEXT_INNER = 10  # the reference's num_inner_steps, the editor's default
 
 
-def _random_images(seed: int):
+def _random_images(seed: int, size: int = 512):
     rng = np.random.RandomState(seed)
-    return lambda: (rng.rand(512, 512, 3) * 255).astype(np.uint8)
+    return lambda: (rng.rand(size, size, 3) * 255).astype(np.uint8)
 
 
 def _reset_counts() -> None:
@@ -399,6 +433,37 @@ def _counts() -> dict:
             "prep": fa.flash_attention_bwd_prep.launches,
             "main": fa.flash_attention_bwd_main.launches,
             "convert": fa.flash_attention_bwd_dq_convert.launches}
+
+
+# (B, H, Sq, Sk, D) of every launch on the paths, by kernel: the forward and
+# the backward's main kernel (prep and dQ convert run at the main's shapes)
+PATH_SHAPES = {"fwd": set(), "bwd": set()}
+
+
+def _record_path_shapes() -> None:
+    """From here on, every launch of the forward and of the backward's main
+    kernel records its shape in ``PATH_SHAPES``: the wrappers' launch
+    functions, wrapped (the launch counts stay the wrappers' own). Called
+    once the kernel phases are done, so only the paths' launches count."""
+    from pnpinversion_tpu_torch.ops import flash_attention as fa
+
+    for key, name in (("fwd", "_launch_fwd"), ("bwd", "_launch_bwd_main")):
+        def logged(q, k, *args, _launch=getattr(fa, name), _key=key):
+            PATH_SHAPES[_key].add((*q.shape[:3], k.shape[2], q.shape[3]))
+            return _launch(q, k, *args)
+
+        setattr(fa, name, logged)
+
+
+def _check_path_shapes() -> dict:
+    """Fails unless every shape a path launched a kernel at is one that the
+    kernel phases held against the plain version; returns the shapes."""
+    checked = {"fwd": {tuple(c[1:6]) for c in FLASH_CASES},
+               "bwd": {tuple(c[1:6]) for c in FLASH_BWD_CASES}}
+    missing = {k: sorted(PATH_SHAPES[k] - checked[k]) for k in PATH_SHAPES}
+    if any(missing.values()):
+        raise AssertionError(f"the paths launched kernels at shapes no case checked: {missing}")
+    return {k: sorted(v) for k, v in PATH_SHAPES.items()}
 
 
 def _check_strip(strip) -> None:
@@ -534,6 +599,354 @@ def ddim_phase(pipe) -> dict:
     return {"steps": steps, "edit_s_per_image": t_edit, "launches": counts}
 
 
+BATCH = 4  # images per batched edit, as bench.py runs them per chip
+# DDIM steps of the batched images-do-not-interact check: LocalBlend from
+# step 2, cross-attention replace to 4, self-attention replace to 6
+INDEPENDENCE_STEPS = 10
+VARIANT_STEPS = 5  # DDIM steps of the counted edits of the other methods
+# ProxEdit's benchmark settings (the batched class's defaults)
+PROX_KW = dict(proximal="l0", quantile=0.75, use_inversion_guidance=True, recon_lr=1.0,
+               recon_t=400)
+# (method, options, UNet calls per DDIM step): one counted edit per group of
+# the P2P family's other methods. The null-text-like methods also make K more
+# calls, one per inner Adam step, each with a backward
+VARIANT_RUNS = [
+    ("negative-prompt-inversion+p2p", dict(npi_interp=0.5), 3),
+    ("negative-prompt-inversion+proximal-guidance", PROX_KW, 3),
+    ("null-text-inversion+proximal-guidance", PROX_KW, 5),
+    ("ablation_null-text-inversion_single_branch+p2p", {}, 5),
+    ("ablation_null-latent-inversion+p2p", {}, 5),
+    ("directinversion+p2p_guidance_25_75", {}, 2),
+    ("ablation_directinversion_04+p2p", {}, 4),
+    ("ablation_directinversion_interval_2+p2p", {}, 4),
+    ("ablation_directinversion_add-source+p2p", {}, 3),
+]
+# (method, UNet calls per DDIM step) of the batched class at 2 images: one
+# per group, and the step ablation (DirectInversion at the pipeline's steps)
+BATCHED_RUNS = [
+    (f"ablation_directinversion_step_{VARIANT_STEPS}+p2p", 2), ("ddim+p2p", 2),
+    ("negative-prompt-inversion+p2p", 2), ("negative-prompt-inversion+proximal-guidance", 3),
+    ("null-text-inversion+proximal-guidance", 5), ("null-text-inversion+p2p", 4),
+    ("ablation_null-text-inversion_single_branch+p2p", 4),
+    ("ablation_null-latent-inversion+p2p", 4), ("directinversion+p2p_guidance_25_75", 2),
+    ("ablation_directinversion_04+p2p", 3), ("ablation_directinversion_add-target+p2p", 3),
+]
+NULL_LIKE = ("null-text", "ablation_null")
+
+
+def _check_launches(name: str, counts: dict, calls_per_step: int, steps: int,
+                    max_inner: int = NULL_TEXT_INNER) -> int:
+    """Check a counted run's launches against the code's own count: one B1
+    launch per flash site per UNet call (``calls_per_step`` per DDIM step
+    plus one per inner Adam step), and one of each backward kernel per
+    differentiated site per inner step. Returns K, the inner steps."""
+    inner = counts["main"] // BWD_SITES
+    want_fwd = FLASH_SITES * (calls_per_step * steps + inner)
+    null_like = name.startswith(NULL_LIKE)
+    ok = (counts["prep"] == counts["main"] == counts["convert"]
+          and counts["main"] % BWD_SITES == 0 and counts["fwd"] == want_fwd
+          and (steps <= inner <= max_inner * steps if null_like else inner == 0))
+    if not ok:
+        k_range = f"1..{max_inner}" if null_like else "0"
+        raise AssertionError(f"{name}: launches {counts}, want {FLASH_SITES} x "
+                             f"({calls_per_step} x {steps} + K) forward and {BWD_SITES} x K of "
+                             f"each backward kernel, K = {k_range} per step")
+    return inner
+
+
+def variants_phase(pipe, steps: int = VARIANT_STEPS) -> dict:
+    """One counted edit of each other P2P-family method group through
+    ``P2PEditor`` at full SD1.4 width and ``steps`` DDIM steps (null-text's
+    and null-latent's 10 inner steps kept)."""
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+
+    editor = P2PEditor(dataclasses.replace(pipe, schedule=make_ddim_schedule(steps)))
+    size = pipe.config.image_size
+    image = _random_images(555, size)
+    rows = {}
+    for method, kw, calls in VARIANT_RUNS:
+        img = image()
+        _reset_counts()
+        strip, t = _sync_time(lambda: editor(method, img, SRC, TAR, **EDIT_KW, **kw))
+        counts = _counts()
+        _check_strip(strip)
+        inner = _check_launches(method, counts, calls, steps)
+        rows[method] = {"edit_s": t, "launches": counts, "inner_steps_total": inner,
+                        "edit_panel_std": float(strip[:, 3 * size:].std())}
+        print("variant", json.dumps({"method": method, "steps": steps, **rows[method]}),
+              flush=True)
+    return rows
+
+
+# one (source, target) pair per image where the images' prompts differ: the
+# cake edit's words (LocalBlend on "cake", "square" reweighted), each pair
+# with "round"/"square" and "cake" at positions of its own, so that each
+# image's refinement alphas, equalizer and blend-word selector differ; the
+# last pair serves the images that replace others
+CAKE_PROMPTS = [(src, src.replace("round", "square")) for src in (
+    SRC,
+    "a big round cake with pink frosting on a glass plate",
+    "a tall white round cake on a metal table",
+    "one slice of a small round cake with blue frosting",
+    "on a red plate there sits a round chocolate cake",
+)]
+
+
+def _cake_batch(pipe, prompts):
+    """(spec, cond (n, 2, 77, D), uncond (2, 77, D), the images' tensors
+    stacked) of the cake edit, one (source, target) pair per image."""
+    from pnpinversion_tpu_torch.control.p2p import stack_tensors
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+
+    editor = P2PEditor(pipe)
+    controls = [editor.make_control(list(pair), blend_word=EDIT_KW["blend_word"],
+                                    eq_params=EDIT_KW["eq_params"]) for pair in prompts]
+    if len({spec for spec, _ in controls}) != 1:
+        raise AssertionError("the images' prompts give different P2P specs")
+    cond = torch.stack([pipe.encode_prompt(list(pair)) for pair in prompts])
+    return (controls[0][0], cond, pipe.encode_prompt(["", ""]),
+            stack_tensors([tensors for _, tensors in controls]))
+
+
+def _diff(got, ref):
+    """(max, mean) uint8 difference."""
+    d = np.abs(got.astype(int) - ref.astype(int))
+    return int(d.max()), float(d.mean())
+
+
+def batched_phase(pipe, single_s: float) -> dict:
+    """The batched editor's headline: ``BatchedDirectInversionP2P`` on
+    ``BATCH`` images (SD1.4, 512^2, the pipeline's steps, the cake edit): a
+    warm-up batch, then a timed batch whose launches are counted; then each
+    image of it through the single-image editor, and the uint8 difference of
+    the two paths' panels, image by image. Then the checks that tell a fault
+    of the batched path from the numerics of another batch size:
+
+    - the reconstruction panels are the VAE round trip at each path's batch
+      sizes, bit for bit, so their difference is the VAE's alone;
+    - the images do not interact: with a prompt pair of its own per image,
+      images [a, b, c, d] twice (the run-to-run floor), then [e, b, f, d]
+      and [a, g, c, h] give the kept images' panels again, up to that
+      floor, at ``INDEPENDENCE_STEPS`` DDIM steps. A mix-up of the images'
+      tensors, source rows or LocalBlend masks, or a statistic taken over
+      the batch, moves them. Each image keeps its place: one of cuDNN's
+      convolutions gives an image results that depend on its place in the
+      batch (one bf16 ulp, which 50 steps grow to tens of levels:
+      ``scripts/probe_torch_batch_independence.py``);
+    - the batched class at N = 1 gives the single-image editor's panels;
+
+    and, measured only, how far the single-image edit moves when its latent
+    moves by one or two bf16 ulps."""
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image
+    from pnpinversion_tpu_torch.parallel.sweep import BatchedDirectInversionP2P
+    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+
+    steps = pipe.schedule.num_steps
+    sweep = BatchedDirectInversionP2P(pipe)
+    spec, cond, uncond, tensors = _cake_batch(pipe, [(SRC, TAR)] * BATCH)
+    size = pipe.config.image_size
+    image = _random_images(2024, size)
+
+    def edit(imgs):
+        return sweep.edit_batch(spec, imgs, cond, uncond, 7.5, tensors)
+
+    _, t_warm = _sync_time(lambda: edit(np.stack([image() for _ in range(BATCH)])))
+    imgs = np.stack([image() for _ in range(BATCH)])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    (recon, edits), t_batch = _sync_time(lambda: edit(imgs))
+    counts = _counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {"fwd": EXPECTED_FLASH_LAUNCHES * steps // 50, "prep": 0, "main": 0, "convert": 0}
+    if counts != want:
+        raise AssertionError(f"batched launches {counts}, want {want} (10 sites x "
+                             f"({steps} inversion + {steps} scan) UNet calls, whatever N is)")
+    for name, x in (("recon", recon), ("edit", edits)):
+        if x.shape != (BATCH, size, size, 3) or x.dtype != np.uint8:
+            raise AssertionError(f"batched {name} {x.shape} {x.dtype}")
+        if min(float(x[i].std()) for i in range(BATCH)) == 0.0:
+            raise AssertionError(f"a batched {name} image is constant")
+    editor = P2PEditor(pipe)
+
+    def single(i):
+        strip = editor("directinversion+p2p", imgs[i], SRC, TAR, **EDIT_KW)
+        return strip[:, 2 * size:3 * size], strip[:, 3 * size:]
+
+    singles = [single(i) for i in range(BATCH)]
+    diffs = {"recon_max": [], "recon_mean": [], "edit_max": [], "edit_mean": []}
+    for i in range(BATCH):
+        for name, got, ref in zip(("recon", "edit"), (recon[i], edits[i]), singles[i]):
+            d_max, d_mean = _diff(got, ref)
+            diffs[f"{name}_max"].append(d_max)
+            diffs[f"{name}_mean"].append(d_mean)
+
+    # the reconstructions: encode at N and decode at 2N rows (edit_batch),
+    # encode at 1 and decode at 2 (the editor)
+    with torch.inference_mode():
+        lat = image_to_latent(pipe.vae, torch.as_tensor(imgs, device=pipe.device),
+                              dtype=pipe.dtype)
+        vae_batched = latent_to_image(pipe.vae, torch.cat([lat, lat])).cpu().numpy()
+        vae_single = [editor.decode_image(torch.cat([editor.encode_image(im)] * 2))[0]
+                      for im in imgs]
+    for i in range(BATCH):
+        if not (np.array_equal(recon[i], vae_batched[i])
+                and np.array_equal(singles[i][0], vae_single[i])):
+            raise AssertionError(f"image {i}: a reconstruction panel is not its path's VAE "
+                                 "round trip")
+    vae_diff = [_diff(vae_batched[i], vae_single[i]) for i in range(BATCH)]
+
+    # the images do not interact: each image keeps its place in the batch
+    # (cuDNN's results for one image may depend on its place), the others
+    # change; at INDEPENDENCE_STEPS, where every P2P phase acts
+    imgs_p = np.stack([image() for _ in range(2 * BATCH)])
+    prompts = [CAKE_PROMPTS[min(i, BATCH)] for i in range(2 * BATCH)]
+    short = dataclasses.replace(pipe, schedule=make_ddim_schedule(INDEPENDENCE_STEPS))
+    sweep_short = BatchedDirectInversionP2P(short)
+
+    def own_prompts(order):
+        spec_p, cond_p, uncond_p, tensors_p = _cake_batch(short, [prompts[i] for i in order])
+        return sweep_short.edit_batch(spec_p, imgs_p[order], cond_p, uncond_p, 7.5, tensors_p)
+
+    first = own_prompts(list(range(BATCH)))
+    floor = max(_diff(a[i], b[i])[0] for a, b in zip(first, own_prompts(list(range(BATCH))))
+                for i in range(BATCH))
+    apart = 0
+    for kept in (range(1, BATCH, 2), range(0, BATCH, 2)):
+        order = [i if i in kept else BATCH + i for i in range(BATCH)]
+        apart = max([apart] + [_diff(g[i], f[i])[0] for g, f in zip(own_prompts(order), first)
+                               for i in kept])
+    if apart > floor:
+        raise AssertionError(f"batched images interact: an image's panels moved by {apart} "
+                             f"uint8 levels when the other images changed (floor {floor})")
+
+    # the batched class at N = 1, and the editor run twice
+    tensors1 = {k: v[:1] for k, v in tensors.items()}
+    one = sweep.edit_batch(spec, imgs[:1], cond[:1], uncond, 7.5, tensors1)
+    floors = {"single_run_to_run": [_diff(a, b)[0] for a, b in zip(single(0), singles[0])],
+              "batched_n1_vs_single": [_diff(a[0], b)[0] for a, b in zip(one, singles[0])]}
+    if max(floors["batched_n1_vs_single"]) > max(floors["single_run_to_run"]):
+        raise AssertionError(f"the batched class at N = 1 is not the single-image editor: "
+                             f"{floors}")
+
+    # the single-image edit's sensitivity to its latent
+    with torch.inference_mode():
+        cond1, uncond1 = editor.embeds([SRC, TAR])
+        spec1, tensors1 = editor.make_control([SRC, TAR], blend_word=EDIT_KW["blend_word"],
+                                              eq_params=EDIT_KW["eq_params"])
+
+        def edit_panel(latent):
+            traj = editor.invert(latent, cond1[:1])
+            out = editor.fused_edit(spec1, traj, cond1, uncond1, 7.5, tensors1)
+            return editor.decode_image(torch.cat([traj[0], out[-1:]]))[1]
+
+        lat0 = editor.encode_image(imgs[0])
+        nudged = edit_panel((lat0.float() * (1 + 2 ** -7)).to(lat0.dtype))
+        sensitivity = _diff(nudged, edit_panel(lat0))
+    return {"batch": BATCH, "steps": steps, "warmup_batch_s": t_warm, "batch_s": t_batch,
+            "s_per_image": t_batch / BATCH, "single_image_s": single_s,
+            "single_over_batched_per_image": single_s * BATCH / t_batch,
+            "flash_launches_per_batch": counts["fwd"], "peak_mem_gib": peak_gib,
+            "uint8_diff_vs_single_editor": diffs,
+            "recon_is_vae_round_trip": True, "vae_batch_vs_single_max_mean": vae_diff,
+            "own_prompts_run_to_run_max": floor, "own_prompts_kept_images_max": apart,
+            "uint8_max_diff_floors_recon_edit": floors,
+            "single_edit_max_mean_after_latent_ulp_nudge": sensitivity}
+
+
+def batched_variants_phase(pipe, steps: int = 3, n: int = 2, inner: int = 2) -> dict:
+    """The batched class on ``n`` images for one method of each group, at
+    ``steps`` DDIM steps and ``inner`` Adam steps, launches counted."""
+    from pnpinversion_tpu_torch.parallel.sweep import BatchedDirectInversionP2P
+    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+
+    p = dataclasses.replace(pipe, schedule=make_ddim_schedule(steps))
+    sweep = BatchedDirectInversionP2P(p, num_inner_steps=inner)
+    spec, cond, uncond, tensors = _cake_batch(p, CAKE_PROMPTS[:n])
+    size = pipe.config.image_size
+    image = _random_images(777, size)
+    rows = {}
+    for method, calls in BATCHED_RUNS:
+        if method.startswith("ablation_directinversion_step_"):
+            method = f"ablation_directinversion_step_{steps}+p2p"
+        unc = cond[:, :1].expand(-1, 2, -1, -1) if method.startswith("negative") else uncond
+        imgs = np.stack([image() for _ in range(n)])
+        _reset_counts()
+        (recon, edit), t = _sync_time(lambda: sweep.edit_batch(spec, imgs, cond, unc, 7.5,
+                                                               tensors, method=method))
+        counts = _counts()
+        k = _check_launches(method, counts, calls, steps, max_inner=inner)
+        if (recon.shape != (n, size, size, 3) or edit.shape != recon.shape
+                or float(edit.std()) == 0.0):
+            raise AssertionError(f"batched {method}: {recon.shape} {edit.shape}")
+        rows[method] = {"batch_s": t, "launches": counts, "inner_steps_total": k}
+        print("batched_variant", json.dumps({"method": method, "images": n, "steps": steps,
+                                             **rows[method]}), flush=True)
+    return rows
+
+
+def early_stop_phase(pipe, steps: int = 3) -> dict:
+    """Batched null-text's per-image early stop, in bf16 on the card: two
+    images, the second with its targets moved so its losses stay high, and a
+    threshold between the two images' first losses. Alone, image 0 stops
+    early and image 1 takes every inner step; together, image 1's count is
+    the batch's, and each image's embeddings are compared with its own."""
+    from pnpinversion_tpu_torch.inversion.ddim_inversion import (
+        ddim_invert_loop,
+        null_text_optimization,
+    )
+    from pnpinversion_tpu_torch.models.unet import apply_images
+    from pnpinversion_tpu_torch.models.vae import image_to_latent
+    from pnpinversion_tpu_torch.schedulers.ddim import (
+        classifier_free_guidance,
+        ddim_step,
+        make_ddim_schedule,
+    )
+
+    sched, unet = make_ddim_schedule(steps), pipe.unet
+    image = _random_images(31337, pipe.config.image_size)
+    imgs = torch.as_tensor(np.stack([image(), image()]), device=pipe.device)
+    with torch.no_grad():
+        lat = image_to_latent(pipe.vae, imgs, dtype=pipe.dtype)[:, None]
+        cond = pipe.encode_prompt([SRC, SRC]).clone()[:, None]
+        uncond = pipe.encode_prompt(["", ""]).clone()[:, None]
+        traj = ddim_invert_loop(unet, sched, lat, cond)
+
+        def first_losses():
+            t, x = sched.timesteps[0], traj[:, -1]
+            eps_c, _ = apply_images(unet, x, t, cond)
+            eps_u, _ = apply_images(unet, x, t, uncond)
+            d = (ddim_step(sched, classifier_free_guidance(eps_u, eps_c, 7.5), t, x)
+                 - traj[:, steps - 1]).float()
+            return (d * d).reshape(2, -1).mean(1).tolist()
+
+        # image 1's targets move by 10x image 0's first RMS error: its losses
+        # are ~100x image 0's, the threshold ~10x
+        traj[1, :-1] += 10.0 * float(np.sqrt(first_losses()[0]))
+        first = first_losses()
+    if not first[1] > 25 * first[0]:
+        raise AssertionError(f"early stop: first losses {first}, want image 1's > 25x image 0's")
+    epsilon = float(np.sqrt(first[0] * first[1]))
+
+    def run(sl):
+        _reset_counts()
+        out = null_text_optimization(unet, sched, traj[sl], uncond[sl], cond[sl], 7.5,
+                                     num_inner_steps=NULL_TEXT_INNER, epsilon=epsilon)
+        torch.cuda.synchronize()
+        return out, _counts()["main"] // BWD_SITES
+
+    (both, k_both), (alone0, k0), (alone1, k1) = (run(sl) for sl in (
+        slice(None), slice(0, 1), slice(1, 2)))
+    if not (k0 < k1 == k_both == NULL_TEXT_INNER * steps):
+        raise AssertionError(f"early stop: inner steps alone {k0}, {k1}, together {k_both}")
+    rel = [((both[i].float() - a[0].float()).abs().max() / a[0].float().abs().max()).item()
+           for i, a in enumerate((alone0, alone1))]
+    return {"steps": steps, "first_losses": first, "epsilon": epsilon,
+            "inner_steps_alone": [k0, k1], "inner_steps_together": k_both,
+            "embedding_rel_diff_together_vs_alone": rel}
+
+
 BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
 TPU_FLASH = "pnpinversion_tpu/ops/flash_attention.py"
 
@@ -579,6 +992,7 @@ def main() -> int:
     from pnpinversion_tpu_torch.ops.flash_attention import BWD_KERNEL, KERNEL
     from pnpinversion_tpu_torch.pipeline import SDPipeline
 
+    t_start = time.perf_counter()
     print(card_line(), flush=True)  # name, power limit: as nvidia-smi prints them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -600,31 +1014,51 @@ def main() -> int:
 
     flash = kernel_phase()
     bwd = bwd_kernel_phase()
+    _record_path_shapes()
     pipe, t_create = _sync_time(lambda: SDPipeline.create(SD14, seed=0, num_ddim_steps=50))
     assert pipe.device.type == "cuda" and pipe.dtype == torch.bfloat16
     main_path = main_path_phase(pipe)
     print("main_path", json.dumps({"create_s": t_create, **main_path}), flush=True)
+    batched = batched_phase(pipe, main_path["edit_s_per_image"])
+    print("batched_path", json.dumps(batched), flush=True)
     null_text = null_text_phase(pipe)
     print("null_text_path", json.dumps(null_text), flush=True)
     ddim = ddim_phase(pipe)
     print("ddim_path", json.dumps(ddim), flush=True)
+    variants = variants_phase(pipe)
+    batched_variants = batched_variants_phase(pipe)
+    early_stop = early_stop_phase(pipe)
+    print("batched_null_text_early_stop", json.dumps(early_stop), flush=True)
+    print("path_shapes", json.dumps(_check_path_shapes()), flush=True)
 
     head = next(r for r in flash["rows"] if r["case"] == "scan_64x64")
     nt_launches = null_text["launches"]
+    fwd_by_path = {"directinversion+p2p": main_path["flash_launches_per_edit"],
+                   f"batched directinversion+p2p x{BATCH}": batched["flash_launches_per_batch"],
+                   NULL_TEXT: nt_launches["fwd"], "ddim+p2p": ddim["launches"]["fwd"]}
+    bwd_by_path = {NULL_TEXT: nt_launches["main"]}
+    for prefix, rows in ((f"{VARIANT_STEPS} steps: ", variants),
+                         ("batched x2, 3 steps: ", batched_variants)):
+        for method, row in rows.items():
+            fwd_by_path[prefix + method] = row["launches"]["fwd"]
+            if row["launches"]["main"]:
+                bwd_by_path[prefix + method] = row["launches"]["main"]
+    bwd_entries = _bwd_entries(bwd, nt_launches)
+    for entry in bwd_entries:
+        entry["launches_by_path"] = bwd_by_path
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "pnpinversion_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": f"{TPU_FLASH}:60",
         "launches": main_path["flash_launches_per_edit"],
-        "launches_by_path": {"directinversion+p2p": main_path["flash_launches_per_edit"],
-                             NULL_TEXT: nt_launches["fwd"],
-                             "ddim+p2p": ddim["launches"]["fwd"]},
+        "launches_by_path": fwd_by_path,
         "max_abs_err": flash["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": head["shape"], "per_case": flash["rows"]},
-        *_bwd_entries(bwd, nt_launches),
+        *bwd_entries,
     ]}), flush=True)
+    print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

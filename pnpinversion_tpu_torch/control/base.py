@@ -5,8 +5,9 @@ Every attention call site of the UNet carries a static ``AttnSite`` and is
 routed through a ``BaseControl``. Per-image tensors (mappers, alpha
 schedules, equalizers, ...) live in ``tensors`` and mutable state (accumulated
 maps, ...) in ``state``; both are plain dicts of tensors the caller threads
-through the sampling loop. The step index is a Python int here: PyTorch runs
-eagerly, so step-dependent behaviour is an ordinary ``if``.
+through the sampling loop. A batch of N images reaches the hooks as N groups
+of rows one after the other (image-major). The step index is a Python int
+here: PyTorch runs eagerly, so step-dependent behaviour is an ordinary ``if``.
 
 Hooks (all optional): ``qkv_hook``, ``value_context_hook``,
 ``attention_override``, ``needs_probs``/``probs_hook``, ``step_callback``,
@@ -52,7 +53,8 @@ class BaseControl:
     """No-op base; subclasses override a subset of hooks."""
 
     def init_state(self, batch_size: int, heads: int = 8, max_words: int = 77,
-                   device=None) -> State:
+                   device=None, images: int = 1) -> State:
+        """Fresh state for ``images`` images of ``batch_size`` prompts each."""
         return {}
 
     def qkv_hook(self, site: AttnSite, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,9 +2,13 @@
 refine/replace cross-attention edits, reweighting, self-attention replace and
 LocalBlend.
 
-Batch layout (the reference's CFG batch): the UNet sees [uncond rows, cond
-rows]; only the cond half is edited and its first row (the source prompt) is
-the edit base. Step-dependent behaviour is a Python ``if`` on the step index.
+Batch layout (the reference's CFG batch): for each image the UNet sees [uncond
+rows, cond rows]; only the cond half is edited and its first row (the source
+prompt) is the edit base. N images are N such groups of rows one after the
+other (image-major), so every hook views the UNet batch as (N, rows, ...) and
+each image is edited with its own tensors (stacked over the images by
+``stack_tensors``) and its own source row, as the JAX package's ``vmap`` over
+images does. Step-dependent behaviour is a Python ``if`` on the step index.
 The LocalBlend map store is accumulated in place (it is created fresh for
 every edit by ``init_state``).
 """
@@ -28,7 +32,7 @@ LB_THRESHOLD = 0.3  # LocalBlend keeps the edit where the normalised map exceeds
 
 @dataclasses.dataclass(frozen=True, eq=True)
 class P2PSpec:
-    """Static description of a P2P controller stack."""
+    """Static description of a P2P controller stack (one image's rows)."""
 
     kind: str  # 'replace' | 'refine'
     batch_size: int  # number of prompts (source first)
@@ -49,18 +53,25 @@ class P2PSpec:
     def half(self) -> int:
         return self.uncond_rows if self.uncond_rows >= 0 else self.batch_size
 
+    @property
+    def rows(self) -> int:
+        """UNet rows per image."""
+        return self.half + self.batch_size
+
 
 class P2PControl(BaseControl):
     def __init__(self, spec: P2PSpec):
         self.spec = spec
 
     def init_state(self, batch_size: int, heads: int = 8, max_words: int = 77,
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None, images: int = 1) -> Dict[str, torch.Tensor]:
+        """The LocalBlend store: (slots, images * batch_size, H, res^2, 77),
+        image-major rows."""
         s = self.spec
         if not s.local_blend:
             return {}
         return {"lb_maps": torch.zeros(
-            (s.num_lb_slots, s.batch_size, heads, s.lb_res * s.lb_res, max_words),
+            (s.num_lb_slots, images * s.batch_size, heads, s.lb_res * s.lb_res, max_words),
             dtype=torch.float32, device=device)}
 
     def needs_probs(self, site: AttnSite) -> bool:
@@ -69,65 +80,66 @@ class P2PControl(BaseControl):
         return site.is_cross
 
     def attention_override(self, site, q, k, v, scale, tensors, state, step):
-        """Self-attention replace: fused attention over every row (the flash
-        kernel at 32^2 on CUDA), then, inside the replace window, the edited
-        rows are overwritten with base_probs @ v_row."""
+        """Self-attention replace: fused attention over every row of every
+        image (one flash launch at 32^2 on CUDA), then, inside the replace
+        window, each image's edited rows are overwritten with its source
+        row's probs @ v_row."""
         s = self.spec
         if site.is_cross or site.seq_len > SELF_EDIT_MAX_SEQ:
             return None
-        B = s.batch_size
-        lo = s.half
         out = fused_attention(q, k, v, scale)
         if s.self_replace_start <= step < s.self_replace_end:
-            base_probs = attention_probs(q[lo : lo + 1], k[lo : lo + 1], scale)
-            out[lo + 1 : lo + B] = apply_probs(base_probs.expand(B - 1, -1, -1, -1),
-                                               v[lo + 1 : lo + B])
+            B, lo = s.batch_size, s.half
+            qi, ki, vi, oi = (x.view((-1, s.rows) + x.shape[1:]) for x in (q, k, v, out))
+            base_probs = attention_probs(qi[:, lo], ki[:, lo], scale)  # (N, H, S, S)
+            oi[:, lo + 1 : lo + B] = apply_probs(
+                base_probs[:, None].expand(-1, B - 1, -1, -1, -1), vi[:, lo + 1 : lo + B])
         return out, state
 
     def probs_hook(self, site, probs, tensors, state, step):
-        """Cross-attention edit of the cond half's probs (self-attention sites
-        never get here: needs_probs is False for them)."""
+        """Cross-attention edit of each image's cond half (self-attention
+        sites never get here: needs_probs is False for them)."""
         s = self.spec
-        B = s.batch_size
-        lo = s.half
-        cond = probs[lo : lo + B]
+        B, lo = s.batch_size, s.half
+        pi = probs.view((-1, s.rows) + probs.shape[1:])  # (N, rows, H, Sq, 77)
+        cond = pi[:, lo : lo + B]
         if s.local_blend and site.lb_slot >= 0:
             # pre-edit cond maps, summed over steps
-            state["lb_maps"][site.lb_slot] += cond
-        base, repl = cond[0], cond[1:]
-        alpha_words = tensors["cross_replace_alpha"][step]  # (B-1, 1, 1, 77)
+            state["lb_maps"][site.lb_slot] += cond.reshape((-1,) + cond.shape[2:])
+        base, repl = cond[:, 0], cond[:, 1:]  # (N, H, Sq, 77), (N, B-1, H, Sq, 77)
+        alpha_words = tensors["cross_replace_alpha"][:, step]  # (N, B-1, 1, 1, 77)
+        mapper = tensors["mapper"]
         if s.kind == "replace":
-            new = torch.einsum("hpw,bwn->bhpn", base, tensors["mapper"])
-        else:  # refine
-            base_g = base[:, :, tensors["mapper"]].permute(2, 0, 1, 3)  # (B-1, H, Sq, 77)
-            alphas = tensors["alphas"][:, None, None, :]
+            new = torch.einsum("nhpw,nbwv->nbhpv", base, mapper)
+        else:  # refine: a gather of the base maps' words, -1 wrapping as in numpy
+            idx = mapper.remainder(base.shape[-1])[:, :, None, None, :].expand(repl.shape)
+            base_g = torch.gather(base[:, None].expand(repl.shape), -1, idx)
+            alphas = tensors["alphas"][:, :, None, None, :]
             new = base_g * alphas + repl * (1.0 - alphas)
         if s.reweight:
-            new = new * tensors["equalizer"][:, None, None, :]
+            new = new * tensors["equalizer"][:, :, None, None, :]
         new = new * alpha_words + (1.0 - alpha_words) * repl
-        return torch.cat([probs[: lo + 1], new], dim=0), state
+        out = torch.cat([pi[:, : lo + 1], new], dim=1)
+        return out.view(probs.shape), state
 
     def step_callback(self, latents, tensors, state, step):
-        """LocalBlend: outside the source row, keep the edit only where the
-        blend words' accumulated cross-attention is strong."""
+        """LocalBlend: outside each image's source row, keep the edit only
+        where the blend words' accumulated cross-attention is strong."""
         s = self.spec
         if not s.local_blend or step + 1 <= s.lb_start_blend:
             return latents, state
-        maps = state["lb_maps"]  # (slots, B, H, res*res, 77)
-        nslots, B, H, _, W = maps.shape
-        maps = maps.transpose(0, 1).reshape(B, nslots * H, s.lb_res, s.lb_res, W)
-
-        def get_mask(selector: torch.Tensor) -> torch.Tensor:
-            m = (maps * selector[:, None, None, None, :]).sum(-1).mean(1)  # (B, res, res)
-            m = F.max_pool2d(m[:, None], 3, stride=1, padding=1)  # 3x3 max, SAME
-            m = F.interpolate(m, size=(s.latent_size, s.latent_size), mode="nearest")[:, 0]
-            m = m / m.amax(dim=(1, 2), keepdim=True)
-            m = m > LB_THRESHOLD
-            return m[:1] | m  # union with the source-prompt mask
-
-        mask = get_mask(tensors["lb_alpha_layers"])
-        mask = mask.to(latents.dtype)[..., None]  # (B, lat, lat, 1)
-        return latents[:1] + mask * (latents - latents[:1]), state
+        maps = state["lb_maps"]  # (slots, N*B, H, res*res, 77)
+        nslots, rows, H, _, W = maps.shape
+        maps = maps.transpose(0, 1).reshape(rows, nslots * H, s.lb_res, s.lb_res, W)
+        selector = tensors["lb_alpha_layers"].reshape(rows, 1, 1, 1, W)
+        m = (maps * selector).sum(-1).mean(1)  # (N*B, res, res)
+        m = F.max_pool2d(m[:, None], 3, stride=1, padding=1)  # 3x3 max, SAME
+        m = F.interpolate(m, size=(s.latent_size, s.latent_size), mode="nearest")[:, 0]
+        m = m / m.amax(dim=(1, 2), keepdim=True)
+        m = (m > LB_THRESHOLD).view(-1, s.batch_size, s.latent_size, s.latent_size)
+        mask = (m[:, :1] | m).to(latents.dtype)[..., None]  # union with the source row's
+        li = latents.view((-1, s.batch_size) + latents.shape[1:])
+        return (li[:, :1] + mask * (li - li[:, :1])).view(latents.shape), state
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +160,9 @@ def make_p2p_control(
     latent_size: int = 64,
     device=None,
 ) -> Tuple[P2PControl, Dict[str, torch.Tensor]]:
-    """Build (control, tensors) for an edit; tensors are f32 (mapper int64)
-    on ``device``."""
+    """Build (control, tensors) for one image's edit; tensors are f32
+    (mapper int64) on ``device``, with the JAX package's shapes (the hooks
+    take them stacked over the images: ``stack_tensors``)."""
     B = len(prompts)
     if isinstance(self_replace_steps, float):
         self_replace_steps = (0.0, self_replace_steps)
@@ -187,6 +200,12 @@ def make_p2p_control(
     if spec.local_blend:
         tensors["lb_alpha_layers"] = tensor(_word_selector(prompts, blend_words, tokenizer))
     return P2PControl(spec), tensors
+
+
+def stack_tensors(per_image: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """One image's control tensors each, as one dict with a leading image
+    axis: each image of a batch is then edited with its own."""
+    return {k: torch.stack([t[k] for t in per_image]) for k in per_image[0]}
 
 
 def _word_selector(prompts, words, tokenizer, max_words: int = 77) -> np.ndarray:

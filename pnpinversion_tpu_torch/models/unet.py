@@ -305,3 +305,14 @@ class UNet(nn.Module):
 
         h = self.conv_out(silu(self.conv_norm_out(h)))
         return h.permute(0, 2, 3, 1), state
+
+
+def apply_images(unet: UNet, x: torch.Tensor, t: int, context: torch.Tensor,
+                 control: BaseControl = NO_CONTROL, tensors=None, state=None,
+                 step: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+    """The UNet on N images' rows at once: x (N, R, h, w, c) and context
+    (N, R, 77, D) go in as one batch of N*R rows, image-major (the layout a
+    control's hooks expect); returns (eps (N, R, h, w, c), control state)."""
+    eps, state = unet(x.reshape((-1,) + x.shape[2:]), t,
+                      context.reshape((-1,) + context.shape[2:]), control, tensors, state, step)
+    return eps.reshape(x.shape), state

@@ -1,0 +1,220 @@
+"""Batched P2P-family editing: N images as one leading batch on one GPU (port
+of ``pnpinversion_tpu/parallel/sweep.py``'s ``BatchedDirectInversionP2P``,
+without its device mesh).
+
+Where the JAX package ``vmap``s a one-image pipeline over an image axis and
+shards it over a mesh, here the N images' UNet rows go through one UNet call
+(image-major, see ``models.unet.apply_images``), so every UNet call and every
+flash launch covers the whole batch. The one-image loops are the N = 1 case
+of the same functions, so the two paths run the same code.
+
+Pattern::
+
+  sweep = BatchedDirectInversionP2P(pipe)
+  recon, edit = sweep.edit_batch(spec, images_u8, cond, uncond, 7.5,
+                                 stack_tensors(per_image_tensors))
+
+Images whose controller spec differs (replace or refine, blend on or off) run
+in different batches; ``group_items_by_spec`` buckets them first.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pnpinversion_tpu_torch.control.base import NO_CONTROL
+from pnpinversion_tpu_torch.control.p2p import P2PControl, P2PSpec
+from pnpinversion_tpu_torch.editors.p2p_editor import (
+    GUIDANCE_GRID,
+    direct_inversion_ablation,
+    offset_rows_mask,
+)
+from pnpinversion_tpu_torch.inversion.ddim_inversion import (
+    ddim_invert_loop,
+    ddim_invert_loop_cfg,
+    direct_inversion_offsets,
+    make_step_gate,
+    null_latent_offsets,
+    null_text_optimization,
+)
+from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image
+from pnpinversion_tpu_torch.pipeline import SDPipeline
+from pnpinversion_tpu_torch.sampling.p2p_forward import (
+    fused_direct_inversion_edit,
+    fused_direct_inversion_edit_srcfree,
+    guidance_forward,
+    guidance_forward_single_branch,
+    proximal_guidance_forward,
+)
+
+
+def group_items_by_spec(items: Sequence[dict],
+                        keyfn: Callable[[dict], Any]) -> Dict[Any, List[dict]]:
+    groups: Dict[Any, List[dict]] = {}
+    for it in items:
+        groups.setdefault(keyfn(it), []).append(it)
+    return groups
+
+
+def pad_batch(arrays: List[np.ndarray], multiple: int) -> Tuple[np.ndarray, int]:
+    """Stack and pad the leading axis up to a multiple (repeating the last
+    element); returns (batch, real_count)."""
+    n = len(arrays)
+    padded = list(arrays) + [arrays[-1]] * ((-n) % multiple)
+    return np.stack(padded), n
+
+
+NULL_TEXT = "null-text-inversion+p2p"
+SINGLE_BRANCH = "ablation_null-text-inversion_single_branch+p2p"
+NULL_LATENT = "ablation_null-latent-inversion+p2p"
+
+
+class BatchedDirectInversionP2P:
+    """P2P-family inversion variants and ablations over a batch of images.
+
+    The per-image pipelines are the editor's (``editors/p2p_editor.py``).
+    The controller never changes the source row of the edit loop (P2P edits
+    the target rows; LocalBlend blends them toward row 0), so the edit loop's
+    row 0 is the reconstruction pass, and each method runs one controlled
+    loop per batch with no separate reconstruction (decode(traj[0]) for the
+    full-offset DirectInversion methods), except ProxEdit, whose shrunk delta
+    moves row 0 as well. The ``uncond`` input is per image, so
+    negative-prompt inversion feeds its "fake uncond" (the source prompt's
+    embedding, possibly slerped) through the same loops as ddim+p2p.
+    """
+
+    VARIANTS = ("directinversion+p2p", "ddim+p2p",
+                "negative-prompt-inversion+p2p", NULL_TEXT,
+                "negative-prompt-inversion+proximal-guidance",
+                "null-text-inversion+proximal-guidance")
+
+    ABLATIONS = ("ablation_directinversion_04+p2p",
+                 "ablation_directinversion_08+p2p",
+                 "ablation_directinversion_add-source+p2p",
+                 "ablation_directinversion_add-target+p2p",
+                 NULL_LATENT, SINGLE_BRANCH)
+
+    @classmethod
+    def supports(cls, method: str) -> bool:
+        """True for the fixed variants plus the guidance grid
+        (directinversion+p2p_guidance_<inv>_<fwd>) and the ablations
+        (including interval_<k> and step_<n>)."""
+        return (method in cls.VARIANTS or method in cls.ABLATIONS
+                or method.startswith("directinversion+p2p_guidance_")
+                or method.startswith("ablation_directinversion_interval_")
+                or cls.step_ablation_steps(method) is not None)
+
+    @staticmethod
+    def step_ablation_steps(method: str) -> Optional[int]:
+        """The step-count ablation: the method is plain directinversion+p2p on
+        a pipeline created with num_ddim_steps=<n> (the output folder keeps
+        the ablation's name)."""
+        m = re.fullmatch(r"ablation_directinversion_step_(\d+)\+p2p", method)
+        return int(m.group(1)) if m else None
+
+    def __init__(self, pipe: SDPipeline, num_inner_steps: int = 10, proximal: str = "l0",
+                 quantile: float = 0.75, recon_lr: float = 1.0, recon_t: int = 400,
+                 dilate_mask: int = 1):
+        self.pipe = pipe
+        self.num_inner_steps = num_inner_steps  # null-text's Adam inner steps
+        # ProxEdit's benchmark settings: l0, quantile 0.75, inversion
+        # guidance, recon_lr 1, recon_t 400
+        self.prox = dict(prox=proximal, quantile=quantile, recon_lr=recon_lr, recon_t=recon_t,
+                         dilate_mask=dilate_mask)
+
+    def edit_batch(self, spec: P2PSpec, images_u8, cond: torch.Tensor, uncond: torch.Tensor,
+                   guidance_scale: float, tensors: Dict[str, torch.Tensor],
+                   method: str = "directinversion+p2p") -> Tuple[np.ndarray, np.ndarray]:
+        """images_u8 (N, H, W, 3) uint8; cond (N, 2, 77, D); uncond (2, 77, D)
+        shared or (N, 2, 77, D) per image; tensors: each image's control
+        tensors stacked on a leading N axis (``control.p2p.stack_tensors``).
+        Returns (recon, edit), uint8 (N, H, W, 3) on the host."""
+        if not self.supports(method):
+            raise NotImplementedError(f"{method!r} is not a batched P2P method")
+        if self.step_ablation_steps(method) is not None:
+            method = "directinversion+p2p"
+        pipe = self.pipe
+        images = torch.as_tensor(np.ascontiguousarray(images_u8), device=pipe.device)
+        N = images.shape[0]
+        if uncond.dim() == 3:
+            uncond = uncond[None].expand((N,) + uncond.shape)
+        grad = method in (NULL_TEXT, SINGLE_BRANCH, NULL_LATENT,
+                          "null-text-inversion+proximal-guidance")
+        with torch.no_grad() if grad else torch.inference_mode():
+            # clones: the loops that differentiate cannot take inference tensors
+            cond, uncond = cond.to(pipe.device).clone(), uncond.to(pipe.device).clone()
+            latent = image_to_latent(pipe.vae, images, dtype=pipe.dtype)[:, None]
+            recon, edit = self._latents(spec, latent, cond, uncond, guidance_scale, tensors,
+                                        method)
+            both = latent_to_image(pipe.vae, torch.cat([recon[:, 0], edit[:, -1]])).cpu().numpy()
+        return both[:N], both[N:]
+
+    def _latents(self, spec, latent, cond, uncond, g, tensors, method):
+        """(recon (N, 1, h, w, 4), edit rows (N, 2, h, w, 4)) of a method;
+        latent (N, 1, h, w, 4)."""
+        pipe = self.pipe
+        unet, sched = pipe.unet, pipe.schedule
+        control = P2PControl(spec)
+        if method.startswith("directinversion+p2p_guidance_"):
+            traj = ddim_invert_loop_cfg(unet, sched, latent, uncond[:, :1], cond[:, :1],
+                                        GUIDANCE_GRID[method.split("_")[-2]])
+        else:
+            traj = ddim_invert_loop(unet, sched, latent, cond[:, :1])
+        x_t = traj[:, -1]
+        if method.startswith("ablation_"):
+            if method == SINGLE_BRANCH:
+                uncond_steps = self._null_text(traj, uncond, cond, g)
+                rows = guidance_forward_single_branch(unet, sched, x_t, cond, uncond_steps,
+                                                      uncond, g, control, tensors)
+                return rows[:, :1], rows
+            context = torch.cat([uncond, cond], dim=1)
+            if method == NULL_LATENT:
+                noise_loss, row_mask = offset_rows_mask("source", null_latent_offsets(
+                    unet, sched, traj, context, g, num_inner_steps=self.num_inner_steps))
+            else:
+                opts = direct_inversion_ablation(method)
+                gate = make_step_gate(sched.num_steps, opts.get("offset_scale", 1.0),
+                                      opts.get("skip_step", 1))
+                noise_loss, row_mask = offset_rows_mask(
+                    opts.get("offset_rows", "source"),
+                    direct_inversion_offsets(unet, sched, traj, context, g, gate)[0])
+            rows = guidance_forward(unet, sched, x_t, cond, uncond, g, control, tensors,
+                                    noise_loss, row_mask)
+            return rows[:, :1], rows
+        if method.endswith("proximal-guidance"):
+            if method.startswith("null-text"):
+                unc = unc_recon = self._null_text(traj, uncond, cond, g)
+            else:
+                unc, unc_recon = uncond, uncond[:, :1]
+            recon = proximal_guidance_forward(unet, sched, x_t, cond[:, :1], unc_recon, g,
+                                              NO_CONTROL, None, edit_stage=False,
+                                              **{**self.prox, "prox": None})
+            rows = proximal_guidance_forward(unet, sched, x_t, cond, unc, g, control, tensors,
+                                             edit_stage=True, inversion_guidance=True,
+                                             x_stars=traj, **self.prox)
+            return recon, rows
+        if method == NULL_TEXT:
+            rows = guidance_forward(unet, sched, x_t, cond, self._null_text(traj, uncond, cond, g),
+                                    g, control, tensors)
+            return rows[:, :1], rows
+        if method.startswith("directinversion+p2p"):
+            # full offsets: the source row re-snaps to the trajectory, so the
+            # dead uncond-source UNet row is dropped (2B-1 rows per image)
+            srcfree = P2PControl(dataclasses.replace(spec, uncond_rows=spec.batch_size - 1))
+            rows = fused_direct_inversion_edit_srcfree(unet, sched, traj, cond, uncond, g,
+                                                       srcfree, tensors)
+            return traj[:, 0], rows
+        # ddim+p2p and negative-prompt-inversion+p2p: no offsets
+        row_mask = torch.zeros((spec.batch_size,), dtype=pipe.dtype, device=pipe.device)
+        rows = fused_direct_inversion_edit(unet, sched, traj, cond, uncond, g, control, tensors,
+                                           row_mask, np.ones((sched.num_steps,), np.float32))
+        return rows[:, :1], rows
+
+    def _null_text(self, traj, uncond, cond, g):
+        """Per-image per-step optimised uncond embeddings (N, T, 1, 77, D)."""
+        return null_text_optimization(self.pipe.unet, self.pipe.schedule, traj, uncond[:, :1],
+                                      cond[:, :1], g, num_inner_steps=self.num_inner_steps)

@@ -88,3 +88,34 @@ def ddim_inverse_step(schedule: DDIMSchedule, eps: torch.Tensor, t: int,
 def classifier_free_guidance(eps_uncond: torch.Tensor, eps_cond: torch.Tensor,
                              scale: float) -> torch.Tensor:
     return eps_uncond + _scalar(scale, eps_cond) * (eps_cond - eps_uncond)
+
+
+def ddim_variance(schedule: DDIMSchedule, t: int) -> np.float32:
+    """sigma_t^2 for eta > 0 steps (diffusers DDIMScheduler._get_variance)."""
+    alpha_prod_t = schedule.alpha_at(t)
+    alpha_prod_t_prev = schedule.alpha_at(t - schedule.step_ratio)
+    one = np.float32(1.0)
+    return np.float32((one - alpha_prod_t_prev) / (one - alpha_prod_t)
+                      * (one - alpha_prod_t / alpha_prod_t_prev))
+
+
+def ddim_step_recon_guided(schedule: DDIMSchedule, eps: torch.Tensor, t: int,
+                           sample: torch.Tensor, ref_image=None, recon_lr: float = 0.0,
+                           recon_mask=None, eta: float = 0.0, variance_noise=None) -> tuple:
+    """The DDIM step that first pulls pred_x0 toward ``ref_image`` (where
+    ``recon_mask`` is 1, or everywhere without a mask); with ``eta > 0`` it
+    keeps sigma_t of noise (``variance_noise`` is added only when given).
+    Returns (prev_sample, pred_x0 after the pull)."""
+    alpha_prod_t_prev = schedule.alpha_at(t - schedule.step_ratio)
+    pred_x0 = pred_x0_from_eps(sample, eps, schedule.alpha_at(t))
+    if ref_image is not None and recon_lr > 0.0:
+        pull = _scalar(recon_lr, pred_x0) * (pred_x0 - ref_image.to(pred_x0.dtype))
+        pred_x0 = pred_x0 - (pull if recon_mask is None else pull * recon_mask.to(pred_x0.dtype))
+    std_dev_t = (np.float32(eta) * _sqrt(ddim_variance(schedule, t)) if eta > 0.0
+                 else np.float32(0.0))
+    direction = _scalar(_sqrt(np.float32(1.0) - alpha_prod_t_prev - std_dev_t * std_dev_t),
+                        sample) * eps
+    prev_sample = _scalar(_sqrt(alpha_prod_t_prev), sample) * pred_x0 + direction
+    if eta > 0.0 and variance_noise is not None:
+        prev_sample = prev_sample + _scalar(std_dev_t, sample) * variance_noise
+    return prev_sample, pred_x0

@@ -6,7 +6,9 @@ image).
 - the cross-replace alpha schedule (``get_time_words_attention_alpha``);
 - the Needleman-Wunsch refinement mapper and the same-length replacement
   matrix (``get_refinement_mapper``, ``get_replacement_mapper``);
-- the attention equalizer (``get_equalizer``).
+- the attention equalizer (``get_equalizer``);
+- spherical interpolation (``slerp``, ``slerp_tensor``) for
+  negative-prompt inversion.
 """
 from __future__ import annotations
 
@@ -214,3 +216,23 @@ def get_equalizer(text: str, word_select, values, tokenizer) -> np.ndarray:
         inds = get_word_inds(text, word, tokenizer)
         eq[:, inds] = val
     return eq
+
+
+# ---------------------------------------------------------------------------
+# slerp (negative-prompt-inversion interpolation)
+# ---------------------------------------------------------------------------
+
+def slerp(val: float, low: np.ndarray, high: np.ndarray) -> np.ndarray:
+    """Spherical interpolation of each row of (N, F) arrays."""
+    low_norm = low / np.linalg.norm(low, axis=1, keepdims=True)
+    high_norm = high / np.linalg.norm(high, axis=1, keepdims=True)
+    omega = np.arccos(np.clip((low_norm * high_norm).sum(1), -1.0, 1.0))
+    so = np.sin(omega)
+    return ((np.sin((1.0 - val) * omega) / so)[:, None] * low
+            + (np.sin(val * omega) / so)[:, None] * high)
+
+
+def slerp_tensor(val: float, low: np.ndarray, high: np.ndarray) -> np.ndarray:
+    """``slerp`` of each leading-axis entry, flattened over the other axes."""
+    res = slerp(val, low.reshape(low.shape[0], -1), high.reshape(high.shape[0], -1))
+    return res.reshape(low.shape)

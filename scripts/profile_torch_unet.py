@@ -1,15 +1,16 @@
 """Where the time of the PyTorch port's main path goes on the GPU.
 
 Profiles, with torch.profiler, the two UNet calls the directinversion+p2p
-edit is made of: the inversion call (1 row, no control) and the fused scan
-call (3 rows under P2P refine + LocalBlend + reweight), at SD1.4 full width
-in bf16 with random weights. For each it prints one JSON line: wall time
-per call (timed without the profiler), the sum of device kernel time per
-call (from the profiler), the device's idle share (1 - their ratio),
-kernel launches per call, the flash kernel's share, and the ten kernels
-that take the most device time.
+edit is made of: the inversion call (1 row per image, no control) and the
+fused scan call (3 rows per image under P2P refine + LocalBlend +
+reweight), at SD1.4 full width in bf16 with random weights, for one image
+or, with ``--images N``, the batched editor's N images per call. For each
+it prints one JSON line: wall time per call (timed without the profiler),
+the sum of device kernel time per call (from the profiler), the device's
+idle share (1 - their ratio), kernel launches per call, the flash forward
+kernel's share, and the ten kernels that take the most device time.
 
-    python3 scripts/profile_torch_unet.py [--calls N]
+    python3 scripts/profile_torch_unet.py [--calls N] [--images N]
 
 Needs one CUDA device; builds the port's kernels first.
 """
@@ -50,7 +51,8 @@ def profile_calls(fn, calls: int) -> dict:
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
-    flash_us = sum(v for k, v in by_name.items() if "flash_fwd_kernel" in k)
+    # the forward kernel of csrc/flash_attention_fwd.cu (flash_fwd_wgmma_kernel<...>)
+    flash_us = sum(v for k, v in by_name.items() if "flash_fwd" in k)
     return {
         "wall_ms_per_call": wall * 1e3 / calls,
         "device_ms_per_call": busy_us / 1e3 / calls,
@@ -65,13 +67,15 @@ def profile_calls(fn, calls: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--images", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_unet: no CUDA device", file=sys.stderr)
         return 1
     from pnpinversion_tpu_torch.configs import SD14
-    from pnpinversion_tpu_torch.control.p2p import P2PControl
+    from pnpinversion_tpu_torch.control.p2p import P2PControl, stack_tensors
     from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.models.unet import apply_images
     from pnpinversion_tpu_torch.pipeline import SDPipeline
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -81,19 +85,23 @@ def main() -> int:
     src = "a round cake with orange frosting on a wooden plate"
     tar = "a square cake with orange frosting on a wooden plate"
     gen = torch.Generator(device="cuda").manual_seed(0)
+    n = args.images
     with torch.inference_mode():
         cond, uncond = editor.embeds([src, tar])
         spec, tensors = editor.make_control([src, tar], blend_word=(("cake",), ("cake",)),
                                             eq_params={"words": ("square",), "values": (2.0,)})
         control = P2PControl(dataclasses.replace(spec, uncond_rows=1))
-        x1 = torch.randn((1, 64, 64, 4), generator=gen, device="cuda").to(pipe.dtype)
-        x3 = torch.randn((3, 64, 64, 4), generator=gen, device="cuda").to(pipe.dtype)
-        ctx3 = torch.cat([uncond[1:], cond])
-        state = control.init_state(2, heads=8, device="cuda")
+        tensors = stack_tensors([tensors] * n)
+        x1 = torch.randn((n, 1, 64, 64, 4), generator=gen, device="cuda").to(pipe.dtype)
+        x3 = torch.randn((n, 3, 64, 64, 4), generator=gen, device="cuda").to(pipe.dtype)
+        ctx1 = cond[None, :1].expand(n, -1, -1, -1)
+        ctx3 = torch.cat([uncond[1:], cond])[None].expand(n, -1, -1, -1)
+        state = control.init_state(2, heads=8, device="cuda", images=n)
         rows = {
-            "invert_call_b1": lambda: pipe.unet(x1, 481, cond[:1]),
+            f"invert_call_b{n}": lambda: apply_images(pipe.unet, x1, 481, ctx1),
             # step 5: inside the self-replace window and past LocalBlend's start
-            "scan_call_b3_p2p": lambda: pipe.unet(x3, 481, ctx3, control, tensors, state, 5),
+            f"scan_call_b{3 * n}_p2p": lambda: apply_images(pipe.unet, x3, 481, ctx3, control,
+                                                            tensors, state, 5),
         }
         for name, fn in rows.items():
             print(name, json.dumps(profile_calls(fn, args.calls)), flush=True)

@@ -85,3 +85,29 @@ def rel_err(got, want) -> float:
     got, want = to_numpy(got), to_numpy(want)
     assert got.shape == want.shape, (got.shape, want.shape)
     return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def assert_strips_match(got: np.ndarray, want: np.ndarray, size: int = 16) -> None:
+    """Two editors' 4-panel strips: the instruction and ground-truth panels
+    are exact; the decoded panels are truncated to uint8, which flips a value
+    wherever the f32 noise of the loops and a decode straddles an integer, so
+    they may differ by 1 on at most 1e-3 of their values."""
+    assert got.shape == want.shape == (size, 4 * size, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got[:, : 2 * size], want[:, : 2 * size])
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+def jax_torch_editors(seed: int, steps: int):
+    """(JAX editor, port editor) at TINY with the same numpy weights and
+    word tokenizers."""
+    from pnpinversion_tpu.configs import TINY
+    from pnpinversion_tpu.editors.p2p_editor import P2PEditor as JaxP2PEditor
+    from pnpinversion_tpu.utils.tokenizer import SimpleWordTokenizer
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.utils.tokenizer import default_tokenizer
+
+    params = pipeline_params(TINY, seed=seed)
+    jpipe, tpipe = jax_pipeline(params, steps), torch_pipeline(params, steps)
+    jpipe.tokenizer, tpipe.tokenizer = SimpleWordTokenizer(), default_tokenizer()
+    return JaxP2PEditor(jpipe), P2PEditor(tpipe)

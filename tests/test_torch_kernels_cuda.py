@@ -25,7 +25,14 @@ def cuda_device():
     # edges of the forward's tiling: Sq and Sk not multiples of 128 (64- and
     # 128-row tiles), d = 128 and 16, a long cross shape, the 4-row 64^2 site
     (1, 1000, 1000, 80, True), (4, 1000, 1000, 80, True), (1, 1024, 1024, 128, False),
-    (2, 1024, 1024, 16, False), (1, 4096, 77, 40, True), (4, 4096, 4096, 40, True)])
+    (2, 1024, 1024, 16, False), (1, 4096, 77, 40, True), (4, 4096, 4096, 40, True),
+    # the batched editor at 4 images: 3 rows each in the DirectInversion
+    # scan, 4 in the CFG loops
+    (12, 4096, 4096, 40, True), (12, 1024, 1024, 80, True), (16, 4096, 4096, 40, True),
+    (16, 1024, 1024, 80, True),
+    # the batched class at 2 images: 3 and 4 rows each
+    (6, 4096, 4096, 40, True), (6, 1024, 1024, 80, True), (8, 4096, 4096, 40, True),
+    (8, 1024, 1024, 80, True)])
 def test_kernel_matches_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
 
@@ -103,7 +110,10 @@ def _bwd_rel_errs(got, want):
     # ragged key and query tiles (keys past Sk masked, rows past Sq zero),
     # the long cross shape, the smallest and largest head dims, 2 and 4 rows
     (1, 4096, 77, 40, True), (1, 1000, 1000, 80, True), (4, 1000, 1000, 80, True),
-    (2, 1024, 1024, 16, False), (1, 1024, 1024, 128, False), (4, 4096, 4096, 40, True)])
+    (2, 1024, 1024, 16, False), (1, 1024, 1024, 128, False), (4, 4096, 4096, 40, True),
+    # batched null-text at 2, 4 and 8 images (one row each)
+    (2, 4096, 4096, 40, True), (2, 1024, 1024, 80, True), (8, 4096, 4096, 40, True),
+    (4, 1024, 1024, 80, True)])
 def test_bwd_kernels_match_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
     q, k, v, out, lse, do = _bwd_inputs(cuda_device, b, 8, sq, sk, d, strided)
     scale = d ** -0.5

@@ -22,7 +22,7 @@ from pnpinversion_tpu.models.vae import (
 )
 from pnpinversion_tpu.utils.tokenizer import SimpleWordTokenizer as JaxTokenizer
 from pnpinversion_tpu_torch.configs import TINY
-from pnpinversion_tpu_torch.control.p2p import P2PControl, make_p2p_control
+from pnpinversion_tpu_torch.control.p2p import P2PControl, make_p2p_control, stack_tensors
 from pnpinversion_tpu_torch.convert import from_jax_params
 from pnpinversion_tpu_torch.models import unet as tunet
 from pnpinversion_tpu_torch.models import vae as tvae
@@ -92,7 +92,8 @@ def test_unet_srcfree_p2p_control(unet_pair, step, tar, replace):
     want, wstate = jax.jit(jfn)(jparams, jnp.asarray(x), jnp.asarray(ctx), jtensors,
                                 jnp.asarray(lb0), jnp.asarray(step))
     with torch.inference_mode():
-        got, gstate = module(torch.from_numpy(x), 481, torch.from_numpy(ctx), tctrl, ttensors,
+        got, gstate = module(torch.from_numpy(x), 481, torch.from_numpy(ctx), tctrl,
+                             stack_tensors([ttensors]),
                              {"lb_maps": torch.from_numpy(lb0.copy())}, step)
     assert rel_err(got, want) <= RTOL
     assert rel_err(gstate["lb_maps"], wstate["lb_maps"]) <= RTOL

@@ -16,7 +16,7 @@ from pnpinversion_tpu.editors.p2p_editor import P2PEditor as JaxP2PEditor
 from pnpinversion_tpu.models.unet import unet_apply
 from pnpinversion_tpu.schedulers import ddim as jddim
 from pnpinversion_tpu.utils.tokenizer import SimpleWordTokenizer as JaxTokenizer
-from pnpinversion_tpu_torch.control.p2p import P2PControl
+from pnpinversion_tpu_torch.control.p2p import P2PControl, stack_tensors
 from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
 from pnpinversion_tpu_torch.inversion.ddim_inversion import _adam_step, null_text_optimization
 from pnpinversion_tpu_torch.ops import attention as tattn
@@ -132,9 +132,9 @@ def _jax_null_text(setup):
 def test_null_text_optimization(setup):
     jpipe, tpipe, _, arr, _ = setup
     want = _jax_null_text(setup)
-    got = null_text_optimization(tpipe.unet, tpipe.schedule, _t(arr["traj"]),
-                                 _t(arr["uncond"][:1]), _t(arr["cond"][:1]), G,
-                                 num_inner_steps=INNER)
+    got = null_text_optimization(tpipe.unet, tpipe.schedule, _t(arr["traj"])[None],
+                                 _t(arr["uncond"][:1])[None], _t(arr["cond"][:1])[None], G,
+                                 num_inner_steps=INNER)[0]
     assert got.shape == (STEPS, 1, 77, 32)
     assert not np.allclose(got[0].numpy(), arr["uncond"][:1])
     assert rel_err(got, want) <= LOOP_RTOL
@@ -145,10 +145,10 @@ def test_null_text_updates_before_the_early_stop(setup):
     inner step, and that step's Adam update is applied first: the result is
     that of num_inner_steps=1, not the starting embedding."""
     _, tpipe, _, arr, _ = setup
-    args = (tpipe.unet, tpipe.schedule, _t(arr["traj"]), _t(arr["uncond"][:1]),
-            _t(arr["cond"][:1]), G)
-    stopped = null_text_optimization(*args, num_inner_steps=INNER, epsilon=1e3)
-    one_step = null_text_optimization(*args, num_inner_steps=1, epsilon=0.0)
+    args = (tpipe.unet, tpipe.schedule, _t(arr["traj"])[None], _t(arr["uncond"][:1])[None],
+            _t(arr["cond"][:1])[None], G)
+    stopped = null_text_optimization(*args, num_inner_steps=INNER, epsilon=1e3)[0]
+    one_step = null_text_optimization(*args, num_inner_steps=1, epsilon=0.0)[0]
     torch.testing.assert_close(stopped, one_step, rtol=0, atol=0)
     # Adam's first step moves every component with a non-zero gradient by
     # ~lr = 1e-2 (1 - i/100)
@@ -211,9 +211,9 @@ def test_guidance_forward_per_step_uncond_p2p(setup):
                                jnp.asarray(G, jnp.float32), jt, jnp.asarray(noise_loss),
                                jnp.asarray(row_mask))
     with torch.no_grad():
-        got = guidance_forward(tpipe.unet, tpipe.schedule, _t(x_t), _t(arr["cond"]),
-                               _t(uncond_steps), G, P2PControl(tspec), tt, _t(noise_loss),
-                               _t(row_mask))
+        got = guidance_forward(tpipe.unet, tpipe.schedule, _t(x_t)[None], _t(arr["cond"])[None],
+                               _t(uncond_steps)[None], G, P2PControl(tspec),
+                               stack_tensors([tt]), _t(noise_loss)[None], _t(row_mask))[0]
     assert got.shape == (2, 8, 8, 4)
     assert rel_err(got, want) <= LOOP_RTOL
 

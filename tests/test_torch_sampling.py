@@ -21,7 +21,7 @@ from pnpinversion_tpu.sampling.p2p_forward import (
 )
 from pnpinversion_tpu.schedulers import ddim as jddim
 from pnpinversion_tpu.utils.tokenizer import SimpleWordTokenizer as JaxTokenizer
-from pnpinversion_tpu_torch.control.p2p import P2PControl, make_p2p_control
+from pnpinversion_tpu_torch.control.p2p import P2PControl, make_p2p_control, stack_tensors
 from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
 from pnpinversion_tpu_torch.inversion.ddim_inversion import ddim_invert_loop
 from pnpinversion_tpu_torch.sampling.p2p_forward import fused_direct_inversion_edit_srcfree
@@ -117,8 +117,8 @@ def test_ddim_invert_loop(pipes):
     want = jax.jit(lambda p, l, e: jax_invert(p, jpipe.schedule, l, e, jpipe.config.unet))(
         jpipe.params["unet"], jnp.asarray(latent), jnp.asarray(emb))
     with torch.inference_mode():
-        got = ddim_invert_loop(tpipe.unet, tpipe.schedule, torch.from_numpy(latent),
-                               torch.from_numpy(emb))
+        got = ddim_invert_loop(tpipe.unet, tpipe.schedule, torch.from_numpy(latent)[None],
+                               torch.from_numpy(emb)[None])[0]
     assert got.shape == (STEPS + 1, 1, 8, 8, 4)
     np.testing.assert_array_equal(got[0].numpy(), latent)
     assert rel_err(got, want) <= RTOL
@@ -138,8 +138,9 @@ def test_fused_srcfree_scan(pipes):
         jpipe.params["unet"], jnp.asarray(traj), jnp.asarray(cond), jnp.asarray(uncond), jt)
     with torch.inference_mode():
         got = fused_direct_inversion_edit_srcfree(
-            tpipe.unet, tpipe.schedule, torch.from_numpy(traj), torch.from_numpy(cond),
-            torch.from_numpy(uncond), 7.5, tc, tt)
+            tpipe.unet, tpipe.schedule, torch.from_numpy(traj)[None],
+            torch.from_numpy(cond)[None], torch.from_numpy(uncond)[None], 7.5, tc,
+            stack_tensors([tt]))[0]
     assert got.shape == (2, 8, 8, 4)
     # the source row re-snaps to the inversion trajectory
     np.testing.assert_array_equal(got[0].numpy(), traj[0, 0])
@@ -164,6 +165,8 @@ def test_editor_strip(pipes):
 
 
 def test_editor_rejects_unported_methods(pipes):
-    with pytest.raises(NotImplementedError, match="A7"):
-        P2PEditor(pipes[1])("negative-prompt-inversion+p2p", np.zeros((16, 16, 3), np.uint8),
+    """A method string of another editing family (MasaCtrl) is not a P2P
+    method: the editor raises as the JAX editor does."""
+    with pytest.raises(NotImplementedError, match="No edit method named"):
+        P2PEditor(pipes[1])("directinversion+masactrl", np.zeros((16, 16, 3), np.uint8),
                             SRC, TAR)
