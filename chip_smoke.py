@@ -3,14 +3,16 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 1. the card's name and power limit, torch/CUDA versions, TF32 flags;
 2. build every CUDA kernel of the port from the sources in this checkout (one
-   nvcc per source, all started together), print ptxas' registers and
-   spills per kernel, and fail on a spill or a wgmma that ptxas serialised;
+   nvcc per source, all started together: the bf16 forward, the bf16
+   backward, the f32 kernels), print ptxas' registers and spills per kernel,
+   and fail on a spill or a wgmma that ptxas serialised;
 3. hold each kernel against its plain PyTorch version at every shape the
    paths give it (and a few more), and time kernel, plain version and the
    PyTorch library call that computes the same function, with CUDA events
    around calls queued behind a spin kernel, so no host time is counted: the
-   flash forward, then the backward's three kernels (prep, main, dQ
-   convert) and the whole backward;
+   bf16 flash forward, then the bf16 backward's three kernels (prep, main,
+   dQ convert) and the whole backward, then the f32 forward, dQ and dK/dV
+   kernels (TF32 off on both sides);
 4. drive the first path: ``P2PEditor("directinversion+p2p", ...)`` on an
    SD1.4 pipeline at full width (random weights from a seed, bf16, 512², 50
    DDIM steps), a warm-up edit, a timed edit whose kernel launches are
@@ -33,9 +35,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    DirectInversion ablations), the batched class on 2 images at 3 steps for
    one method of each group (a prompt pair per image), and batched
    null-text's per-image early stop (two images, one of which stops early);
-   every shape that these paths launched a kernel at must be one that phase
-   3 held against the plain version;
-8. print one JSON line of kernel numbers (launches of each kernel on every
+8. the f32 pipeline (``SDPipeline.create(..., dtype=torch.float32)``, full
+   f32): one counted directinversion+p2p edit and one counted
+   null-text-inversion+p2p edit, which launch only the f32 kernels, and one
+   UNet call with TF32 on against full f32; every shape that these paths
+   launched a kernel at, in either dtype, must be one that phase 3 held
+   against the plain version;
+9. the PIE-Bench evaluator at full width (CLIP ViT-L/14, DINO ViT-B/8,
+   SqueezeNet LPIPS, random weights, f32) over the batched path's strips,
+   written in the runners' layout with a synthetic mapping file: the CSV's
+   checks, and the first row against the same calculator on the host CPU;
+10. print one JSON line of kernel numbers (launches of each kernel on every
    path), the script's total seconds, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA it
@@ -96,6 +106,16 @@ FLASH_CASES = [
     ("batch2_cfg_64x64", 8, 8, 4096, 4096, 40, True, True),
     ("batch2_cfg_32x32", 8, 8, 1024, 1024, 80, True, True),
 ] + EDGE_CASES
+# the f32 pipeline (SDPipeline.create(..., dtype=torch.float32)) on one
+# image: 1 row in inversion and null-text's inner loop, 3 in the
+# DirectInversion scan, 2 and 4 in null-text+p2p's reconstruction and edit
+F32_FLASH_CASES = [
+    (f"f32_rows{b}_{size}", b, 8, s, s, d, True, True)
+    for b in (1, 2, 3, 4) for size, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80))
+] + EDGE_CASES
+# (..., dtype): every case names the kernel family it checks
+FLASH_CASES = ([c + ("bf16",) for c in FLASH_CASES]
+               + [c + ("f32",) for c in F32_FLASH_CASES])
 FLASH_O_TOL = 1e-2      # |v| ~ N(0,1): O is a convex mix of v; bf16 rounding of O and P
 FLASH_LSE_RTOL = 1e-3   # f32 statistics on both sides
 EXPECTED_FLASH_LAUNCHES = 1000  # 10 sites x (50 inversion + 50 scan) UNet calls
@@ -121,10 +141,28 @@ FLASH_BWD_CASES = [
     ("nulltext_b4_32x32", 4, 8, 1024, 1024, 80, True, True),
     ("nulltext_b8_64x64", 8, 8, 4096, 4096, 40, True, True),
 ] + EDGE_CASES
+# the f32 null-text inner loop (one UNet row) and the edge cases
+F32_FLASH_BWD_CASES = [
+    ("f32_nulltext_64x64", 1, 8, 4096, 4096, 40, True, True),
+    ("f32_nulltext_32x32", 1, 8, 1024, 1024, 80, True, True),
+    ("d64_s1024", 1, 8, 1024, 1024, 64, False, False),
+    ("ragged_cross", 1, 8, 1000, 77, 40, False, False),
+] + EDGE_CASES
+FLASH_BWD_CASES = ([c + ("bf16",) for c in FLASH_BWD_CASES]
+                   + [c + ("f32",) for c in F32_FLASH_BWD_CASES])
 # relative to max |plain|: P and dS are rounded to bf16 before their products
 # (as the TPU kernels round them) and dQ/dK/dV are stored in bf16
 FLASH_BWD_RTOL = 2e-2
 FLASH_DELTA_RTOL = 1e-3  # f32 sums over d on both sides, in another order
+# the f32 kernels against their plain versions, TF32 off on both sides: f32
+# sums over Sk (or Sq) terms in another order than cuBLAS', so a few f32 ulps
+# of the largest value; O and dQ/dK/dV relative to max |plain|, LSE absolute
+# (|LSE| ~ 8: one ulp is 1e-6)
+F32_O_RTOL = 2e-5
+F32_LSE_ATOL = 1e-5
+F32_BWD_RTOL = 1e-4
+H100_F32_FLOPS = 67e12    # FP32 on the CUDA cores, SXM, 700 W
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak: what a TF32 redesign could reach
 
 
 def card_line() -> str:
@@ -235,7 +273,7 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         # the kernel's own name follows its length in the mangled name, after
         # the anonymous namespace's (which also holds "flash_")
-        m = re.search(r"Compiling entry function '\S*?(?<=\d)(flash_[a-z_]+?_kernel)"
+        m = re.search(r"Compiling entry function '\S*?(?<=\d)(flash_[a-z0-9_]+?_kernel)"
                       r"(?:I((?:Li\d+E)+)E)?", line)
         if m:
             args = ",".join(re.findall(r"Li(\d+)E", m.group(2) or ""))
@@ -256,13 +294,13 @@ def ptxas_summary(log: str) -> list:
     return lines + warnings
 
 
-def _bf16_heads(gen, b, h, s, d, strided) -> torch.Tensor:
-    """Random bf16 (B, H, S, D) on the card; strided: heads split from a
-    (B, S, H*D) tensor, as the UNet's attention sites make them."""
+def _heads(gen, b, h, s, d, strided, dtype=torch.bfloat16) -> torch.Tensor:
+    """Random (B, H, S, D) of ``dtype`` on the card; strided: heads split from
+    a (B, S, H*D) tensor, as the UNet's attention sites make them."""
     if strided:
         x = torch.randn((b, s, h * d), generator=gen, device="cuda")
-        return x.to(torch.bfloat16).view(b, s, h, d).transpose(1, 2)
-    return torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        return x.to(dtype).view(b, s, h, d).transpose(1, 2)
+    return torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
 
 
 def kernel_phase(timing: bool = True) -> dict:
@@ -274,10 +312,12 @@ def kernel_phase(timing: bool = True) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = [], 0.0
-    for name, b, h, sq, sk, d, strided, timed in FLASH_CASES:
+    for name, b, h, sq, sk, d, strided, timed, dtype in FLASH_CASES:
+        if dtype != "bf16":
+            continue
         timed = timed and timing
         def make(s):
-            return _bf16_heads(gen, b, h, s, d, strided)
+            return _heads(gen, b, h, s, d, strided)
 
         q, k, v = make(sq), make(sk), make(sk)
         scale = d ** -0.5
@@ -325,11 +365,13 @@ def bwd_kernel_phase(timing: bool = True) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = [], {"delta": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dq_run_to_run": 0.0}
-    for name, b, h, sq, sk, d, strided, timed in FLASH_BWD_CASES:
+    for name, b, h, sq, sk, d, strided, timed, dtype in FLASH_BWD_CASES:
+        if dtype != "bf16":
+            continue
         timed = timed and timing
 
         def make(s):
-            return _bf16_heads(gen, b, h, s, d, strided)
+            return _heads(gen, b, h, s, d, strided)
 
         q, k, v, do = make(sq), make(sk), make(sk), make(sq)
         scale = d ** -0.5
@@ -397,6 +439,132 @@ def bwd_kernel_phase(timing: bool = True) -> dict:
     return {"rows": rows, "max_abs_err": worst}
 
 
+def f32_flash_bounds(b, h, sq, sk, d) -> dict:
+    """Bounds of the f32 kernels on the CUDA cores' FP32 peak (``fwd``: QK^T
+    and PV, 4 B*H*Sq*Sk*d FLOPs; ``dq``: QK^T, dO V^T and dS K, 6; ``dkv``:
+    QK^T, dO V^T, P^T dO and dS^T Q, 8; ``bwd``, the whole backward as one
+    function: 10, the plain backward's five products) and, beside each, the same work
+    at the TF32 tensor-core peak (``*_tf32``), which only a TF32 redesign could
+    approach. Bytes: each input read once, each output written once, 4 per
+    element."""
+    bh, mn = b * h, b * h * sq * sk * d
+    q_b, kv_b, stat_b = 4.0 * bh * sq * d, 4.0 * bh * sk * d, 4.0 * bh * sq
+    work = {"fwd": (4.0 * mn, q_b + 2 * kv_b + q_b + stat_b),
+            "dq": (6.0 * mn, 2 * q_b + 2 * kv_b + 2 * stat_b + q_b),
+            "dkv": (8.0 * mn, 2 * q_b + 2 * kv_b + 2 * stat_b + 2 * kv_b),
+            "bwd": (10.0 * mn, 3 * q_b + 2 * kv_b + stat_b + q_b + 2 * kv_b)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_bytes = nbytes / H100_BYTES_PER_S
+        for suffix, peak in (("", H100_F32_FLOPS), ("_tf32", H100_TF32_FLOPS)):
+            t_ops = flops / peak
+            out[f"{name}{suffix}_bound_ms"] = max(t_ops, t_bytes) * 1e3
+            out[f"{name}{suffix}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
+
+
+def _rel(got, ref) -> float:
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def f32_kernel_phase(timing: bool = True) -> dict:
+    """The f32 kernels (forward, dQ, dK/dV) vs their plain versions at every
+    f32 case, TF32 off on both sides: O within ``F32_O_RTOL`` of max |plain|,
+    LSE within ``F32_LSE_ATOL``, dQ/dK/dV within ``F32_BWD_RTOL`` of max
+    |plain|, and the backward bit-identical run to run (no atomics). Times at
+    the timed cases (none with ``timing=False``): each kernel, its plain
+    version and f32 SDPA (forward, and backward on a graph built once), a
+    yardstick only."""
+    from pnpinversion_tpu_torch.ops import flash_attention as fa
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the f32 kernels' oracle runs with TF32 off")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    fwd_rows, bwd_rows = [], []
+    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for name, b, h, sq, sk, d, strided, timed, dtype in FLASH_CASES:
+        if dtype != "f32":
+            continue
+        timed = timed and timing
+        q, k, v = (_heads(gen, b, h, s, d, strided, torch.float32) for s in (sq, sk, sk))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, scale)
+        row = {"case": name, "shape": [b, h, sq, sk, d], "rel_err_o": _rel(o, o_ref),
+               "max_abs_err_o": (o - o_ref).abs().max().item(),
+               "max_abs_err_lse": (lse - lse_ref).abs().max().item()}
+        row["ok"] = row["rel_err_o"] <= F32_O_RTOL and row["max_abs_err_lse"] <= F32_LSE_ATOL
+        worst["o"] = max(worst["o"], row["max_abs_err_o"])
+        worst["lse"] = max(worst["lse"], row["max_abs_err_lse"])
+        if timed:
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            row.update(time_interleaved({
+                "ms": lambda: fa.flash_attention_fwd(q, k, v, scale),
+                "plain_ms": lambda: fa.flash_attention_reference(q, k, v, scale),
+                "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qc, kc, vc, scale=scale)}))
+            bounds = f32_flash_bounds(b, h, sq, sk, d)
+            row.update(bound_ms=bounds["fwd_bound_ms"], bound_by=bounds["fwd_bound_by"],
+                       tf32_bound_ms=bounds["fwd_tf32_bound_ms"])
+        print("flash_f32", json.dumps(row), flush=True)
+        if not row["ok"]:
+            raise AssertionError(f"f32 flash kernel disagrees with its plain version: {row}")
+        fwd_rows.append(row)
+        del q, k, v, o, lse, o_ref, lse_ref
+    for name, b, h, sq, sk, d, strided, timed, dtype in FLASH_BWD_CASES:
+        if dtype != "f32":
+            continue
+        timed = timed and timing
+        q, k, v, do = (_heads(gen, b, h, s, d, strided, torch.float32) for s in (sq, sk, sk, sq))
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, scale)
+        delta = (do * out).sum(-1).contiguous()
+        dq = fa.flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, scale)
+        dk, dv = fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, scale)
+        again = [fa.flash_attention_bwd(q, k, v, out, lse, do, scale) for _ in range(2)]
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
+        row = {"case": name, "shape": [b, h, sq, sk, d], "ok": True}
+        for key, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            row[f"max_abs_err_{key}"] = (got - ref).abs().max().item()
+            row[f"rel_err_{key}"] = _rel(got, ref)
+            row["ok"] &= row[f"rel_err_{key}"] <= F32_BWD_RTOL
+            worst[key] = max(worst[key], row[f"max_abs_err_{key}"])
+        row["bit_identical_run_to_run"] = all(
+            torch.equal(x, y) for g in again for x, y in zip(g, (dq, dk, dv)))
+        row["ok"] &= row["bit_identical_run_to_run"]
+        del again
+        if timed:
+            leaves = [x.detach().contiguous().requires_grad_(True) for x in (q, k, v)]
+            lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=scale)
+            dout = do.contiguous()
+            row.update(time_interleaved({
+                "dq_ms": lambda: fa.flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, scale),
+                "dkv_ms": lambda: fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta,
+                                                                 scale),
+                "bwd_ms": lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, scale),
+                "plain_dq_ms": lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, do, lse, delta, scale),
+                "plain_dkv_ms": lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, scale),
+                "plain_bwd_ms": lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, out, lse, do, scale),
+                "library_bwd_ms": lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                              retain_graph=True)}))
+            bounds = f32_flash_bounds(b, h, sq, sk, d)
+            row.update({k_: v_ for k_, v_ in bounds.items() if not k_.startswith("fwd")})
+            del leaves, lib_out
+        print("flash_f32_bwd", json.dumps(row), flush=True)
+        if not row["ok"]:
+            raise AssertionError(f"f32 flash backward kernels disagree with the plain "
+                                 f"version: {row}")
+        bwd_rows.append(row)
+        del q, k, v, do, out, lse, delta, dq, dk, dv, want
+    torch.cuda.empty_cache()
+    return {"fwd_rows": fwd_rows, "bwd_rows": bwd_rows, "max_abs_err": worst}
+
+
 def _sync_time(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -422,11 +590,13 @@ def _random_images(seed: int, size: int = 512):
 def _reset_counts() -> None:
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
-    for fn in (fa.flash_attention_fwd,) + fa.BWD_WRAPPERS:
+    for fn in (fa.flash_attention_fwd,) + fa.BWD_WRAPPERS + fa.F32_WRAPPERS:
         fn.launches = 0
 
 
 def _counts() -> dict:
+    """Launches of the bf16 kernels since ``_reset_counts``; the f32 kernels'
+    are in ``_f32_counts``."""
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
     return {"fwd": fa.flash_attention_fwd.launches,
@@ -435,21 +605,31 @@ def _counts() -> dict:
             "convert": fa.flash_attention_bwd_dq_convert.launches}
 
 
-# (B, H, Sq, Sk, D) of every launch on the paths, by kernel: the forward and
-# the backward's main kernel (prep and dQ convert run at the main's shapes)
+def _f32_counts() -> dict:
+    from pnpinversion_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.flash_attention_fwd_f32.launches,
+            "dq": fa.flash_attention_bwd_dq_f32.launches,
+            "dkv": fa.flash_attention_bwd_dkv_f32.launches}
+
+
+# (dtype, B, H, Sq, Sk, D) of every launch on the paths, by kernel: the
+# forward and the backward (bf16: its main kernel, whose shapes prep and dQ
+# convert share; f32: the dQ and dK/dV kernels, which share theirs)
 PATH_SHAPES = {"fwd": set(), "bwd": set()}
 
 
 def _record_path_shapes() -> None:
-    """From here on, every launch of the forward and of the backward's main
-    kernel records its shape in ``PATH_SHAPES``: the wrappers' launch
-    functions, wrapped (the launch counts stay the wrappers' own). Called
-    once the kernel phases are done, so only the paths' launches count."""
+    """From here on, every launch of a forward or backward kernel records its
+    dtype and shape in ``PATH_SHAPES``: the wrappers' launch functions,
+    wrapped (the launch counts stay the wrappers' own). Called once the
+    kernel phases are done, so only the paths' launches count."""
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
-    for key, name in (("fwd", "_launch_fwd"), ("bwd", "_launch_bwd_main")):
-        def logged(q, k, *args, _launch=getattr(fa, name), _key=key):
-            PATH_SHAPES[_key].add((*q.shape[:3], k.shape[2], q.shape[3]))
+    for key, name, dtype in (("fwd", "_launch_fwd", "bf16"), ("bwd", "_launch_bwd_main", "bf16"),
+                             ("fwd", "_launch_fwd_f32", "f32"), ("bwd", "_launch_bwd_f32", "f32")):
+        def logged(q, k, *args, _launch=getattr(fa, name), _key=key, _dtype=dtype):
+            PATH_SHAPES[_key].add((_dtype, *q.shape[:3], k.shape[2], q.shape[3]))
             return _launch(q, k, *args)
 
         setattr(fa, name, logged)
@@ -458,8 +638,8 @@ def _record_path_shapes() -> None:
 def _check_path_shapes() -> dict:
     """Fails unless every shape a path launched a kernel at is one that the
     kernel phases held against the plain version; returns the shapes."""
-    checked = {"fwd": {tuple(c[1:6]) for c in FLASH_CASES},
-               "bwd": {tuple(c[1:6]) for c in FLASH_BWD_CASES}}
+    checked = {"fwd": {(c[8], *c[1:6]) for c in FLASH_CASES},
+               "bwd": {(c[8], *c[1:6]) for c in FLASH_BWD_CASES}}
     missing = {k: sorted(PATH_SHAPES[k] - checked[k]) for k in PATH_SHAPES}
     if any(missing.values()):
         raise AssertionError(f"the paths launched kernels at shapes no case checked: {missing}")
@@ -737,7 +917,8 @@ def batched_phase(pipe, single_s: float) -> dict:
     - the batched class at N = 1 gives the single-image editor's panels;
 
     and, measured only, how far the single-image edit moves when its latent
-    moves by one or two bf16 ulps."""
+    moves by one or two bf16 ulps. Returns (numbers, the timed batch's
+    inputs and panels: ``images``, ``recon``, ``edit``)."""
     from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
     from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image
     from pnpinversion_tpu_torch.parallel.sweep import BatchedDirectInversionP2P
@@ -844,7 +1025,7 @@ def batched_phase(pipe, single_s: float) -> dict:
         lat0 = editor.encode_image(imgs[0])
         nudged = edit_panel((lat0.float() * (1 + 2 ** -7)).to(lat0.dtype))
         sensitivity = _diff(nudged, edit_panel(lat0))
-    return {"batch": BATCH, "steps": steps, "warmup_batch_s": t_warm, "batch_s": t_batch,
+    stats = {"batch": BATCH, "steps": steps, "warmup_batch_s": t_warm, "batch_s": t_batch,
             "s_per_image": t_batch / BATCH, "single_image_s": single_s,
             "single_over_batched_per_image": single_s * BATCH / t_batch,
             "flash_launches_per_batch": counts["fwd"], "peak_mem_gib": peak_gib,
@@ -853,6 +1034,7 @@ def batched_phase(pipe, single_s: float) -> dict:
             "own_prompts_run_to_run_max": floor, "own_prompts_kept_images_max": apart,
             "uint8_max_diff_floors_recon_edit": floors,
             "single_edit_max_mean_after_latent_ulp_nudge": sensitivity}
+    return stats, {"images": imgs, "recon": recon, "edit": edits}
 
 
 def batched_variants_phase(pipe, steps: int = 3, n: int = 2, inner: int = 2) -> dict:
@@ -947,8 +1129,273 @@ def early_stop_phase(pipe, steps: int = 3) -> dict:
             "embedding_rel_diff_together_vs_alone": rel}
 
 
+F32_DI_STEPS = 50        # DDIM steps of the f32 directinversion+p2p edit
+F32_NULL_TEXT_STEPS = 3  # and of the f32 null-text edit (10 inner steps each)
+
+
+def f32_path_phase() -> dict:
+    """The f32 pipeline on the card at full SD1.4 width (random weights from
+    seed 0, 512^2): ``SDPipeline.create(..., dtype=torch.float32)``, one
+    directinversion+p2p edit at ``F32_DI_STEPS`` and one
+    null-text-inversion+p2p edit at ``F32_NULL_TEXT_STEPS`` (its inner Adam
+    loop runs the f32 backward kernels), each timed, its peak memory read and
+    its launches of every kernel counted against the code's own count: only
+    the f32 kernels run. Then one UNet call with TF32 on against full f32,
+    the number beside the f32 policy (``utils.device.use_full_f32``)."""
+    from pnpinversion_tpu_torch.configs import SD14
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: create must turn it off
+    pipe, t_create = _sync_time(lambda: SDPipeline.create(
+        SD14, seed=0, num_ddim_steps=F32_DI_STEPS, device="cuda", dtype=torch.float32))
+    if (pipe.dtype != torch.float32 or torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("an f32 pipeline on the card must run with TF32 off")
+    size = pipe.config.image_size
+    image = _random_images(4242, size)
+    out = {"create_s": t_create}
+    no_bf16 = {"fwd": 0, "prep": 0, "main": 0, "convert": 0}
+    for method, steps in (("directinversion+p2p", F32_DI_STEPS),
+                          (NULL_TEXT, F32_NULL_TEXT_STEPS)):
+        editor = P2PEditor(dataclasses.replace(pipe, schedule=make_ddim_schedule(steps)))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        strip, t = _sync_time(lambda: editor(method, image(), SRC, TAR, **EDIT_KW))
+        counts, bf16 = _f32_counts(), _counts()
+        _check_strip(strip)
+        inner = counts["dq"] // BWD_SITES
+        calls = 2 * steps if method == "directinversion+p2p" else 5 * steps + inner
+        ok = (bf16 == no_bf16 and counts["dq"] == counts["dkv"] == BWD_SITES * inner
+              and counts["fwd"] == FLASH_SITES * calls
+              and (steps <= inner <= NULL_TEXT_INNER * steps if method == NULL_TEXT
+                   else inner == 0))
+        if not ok:
+            raise AssertionError(f"f32 {method}: launches {counts} (bf16 kernels {bf16}), want "
+                                 f"{FLASH_SITES} forward per UNet call and {BWD_SITES} of each "
+                                 f"backward kernel per inner step, no bf16 kernel")
+        out[method] = {"steps": steps, "edit_s": t, "launches": counts,
+                       "inner_steps_total": inner,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "edit_panel_std": float(strip[:, 3 * size:].std())}
+        print("f32_path", json.dumps({"method": method, **out[method]}), flush=True)
+
+    # one UNet call, full f32 against TF32 (cuDNN's convolutions only, PyTorch's
+    # default, and the matrix products too)
+    gen = torch.Generator(device=pipe.device).manual_seed(5)
+    lat = pipe.latent_size
+    x = torch.randn((1, lat, lat, 4), generator=gen, device=pipe.device)
+    ctx = pipe.encode_prompt([SRC])
+    with torch.inference_mode():
+        full, _ = pipe.unet(x, 500, ctx)
+        diffs = {}
+        for name, matmul in (("cudnn_tf32", False), ("cudnn_and_matmul_tf32", True)):
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+            try:
+                eps, _ = pipe.unet(x, 500, ctx)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            diffs[name] = {"max_abs": (eps - full).abs().max().item(),
+                           "rel_to_max": _rel(eps, full)}
+    out["unet_eps_tf32_vs_full_f32"] = diffs
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+EVAL_METHOD = "1_directinversion+p2p"
+# each metric on the card against the same calculator on the host CPU: f32
+# on both sides, sums in other orders (cuDNN and cuBLAS against the CPU's)
+# through towers of up to 24 layers
+EVAL_CPU_RTOL = 1e-3
+
+
+def _eval_data(root: str, out: dict) -> str:
+    """The batched path's images and strips in the runners' layout under
+    ``root``: ``data/annotation_images/<rel>`` (the inputs),
+    ``output/directinversion+p2p/annotation_images/<rel>`` (4-panel strips),
+    and ``data/mapping_file.json``, whose masks are ``mask_encode`` of seeded
+    rectangles but for the last item, which has none. Returns the mapping
+    file's path."""
+    import os
+
+    from PIL import Image
+
+    from pnpinversion_tpu_torch.data.pie_bench import mask_encode
+    from pnpinversion_tpu_torch.utils.image import make_strip, txt_draw
+
+    rng = np.random.RandomState(6)
+    images, size = out["images"], out["images"].shape[1]
+    mapping = {}
+    for i, img in enumerate(images):
+        rel = f"{i}_random/{i:03d}.jpg"
+        for folder, panel in (("data/annotation_images", img),
+                              ("output/directinversion+p2p/annotation_images", make_strip([
+                                  txt_draw(f"source prompt: {SRC}\ntarget prompt: {TAR}"),
+                                  img, out["recon"][i], out["edit"][i]]))):
+            path = os.path.join(root, folder, rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(panel).save(path)
+        item = {"image_path": rel, "original_prompt": SRC.replace("round", "[round]"),
+                "editing_prompt": TAR.replace("square", "[square]"),
+                "editing_instruction": "make the cake square", "editing_type_id": str(i),
+                "blended_word": "cake cake"}
+        if i < len(images) - 1:
+            top, left = rng.randint(0, size // 2, 2)
+            mask = np.zeros((size, size), np.uint8)
+            mask[top : top + size // 3, left : left + size // 4] = 1
+            item["mask"] = mask_encode(mask)
+        mapping[f"{i:09d}"] = item
+    path = os.path.join(root, "data", "mapping_file.json")
+    with open(path, "w") as f:
+        json.dump(mapping, f)
+    return path
+
+
+def eval_phase(batch_out: dict, calc=None) -> dict:
+    """The PIE-Bench evaluator on the card at full width (CLIP ViT-L/14 vision
+    and text towers, DINO ViT-B/8, SqueezeNet LPIPS; random weights from seed
+    0, f32): ``evaluate()`` over the batched path's strips with
+    ``DEFAULT_METRICS``. Checks the CSV's header, one row per item, every
+    number finite and "nan" exactly where ``_nan_sentinel`` says; then the
+    first image's row, and its raw CLIP cosines, against the same calculator
+    with the same weights on the host CPU (``EVAL_CPU_RTOL``). Seconds per
+    evaluated image and per metric family, peak memory. ``calc`` replaces the
+    full-width calculator on the card (a CPU rehearsal at TINY)."""
+    import copy
+    import csv
+    import os
+    import tempfile
+
+    from PIL import Image
+
+    from pnpinversion_tpu_torch.data.pie_bench import mask_decode
+    from pnpinversion_tpu_torch.evaluation import evaluate as ev
+    from pnpinversion_tpu_torch.evaluation.calculator import MetricsCalculator
+
+    t_init = None
+    if calc is None:
+        calc, t_init = _sync_time(lambda: MetricsCalculator(seed=0))
+        if calc.device.type != "cuda" or calc.clip_vision.config.width != 1024:
+            raise AssertionError("the evaluator must run on the card at full width")
+    family_s: dict = {}
+    for name in ("psnr", "mse", "ssim", "lpips", "clip_similarity", "structure_distance"):
+        fn = getattr(calc, f"calculate_{name}")
+
+        def timed(*args, _fn=fn, _name=name):
+            value, dt = _sync_time(lambda: _fn(*args))
+            family_s.setdefault(_name, []).append(dt)
+            return value
+
+        setattr(calc, f"calculate_{name}", timed)
+    with tempfile.TemporaryDirectory() as root:
+        mapping_path = _eval_data(root, batch_out)
+        folders = {EVAL_METHOD: ev.all_tgt_image_folders(os.path.join(root, "output"))[EVAL_METHOD]}
+        result = os.path.join(root, "result.csv")
+        src_folder = os.path.join(root, "data", "annotation_images")
+        torch.cuda.reset_peak_memory_stats()
+        _, t_eval = _sync_time(lambda: ev.evaluate(mapping_path, ev.DEFAULT_METRICS, src_folder,
+                                                   folders, result, [str(i) for i in range(10)],
+                                                   calc))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name in family_s:
+            delattr(calc, f"calculate_{name}")  # the class's own methods again
+        with open(result) as f:
+            rows = list(csv.reader(f))
+        with open(mapping_path) as f:
+            mapping = json.load(f)
+        head = ["file_id"] + [f"{EVAL_METHOD}|{m}" for m in ev.DEFAULT_METRICS]
+        if rows[0] != head or [r[0] for r in rows[1:]] != list(mapping):
+            raise AssertionError(f"evaluation CSV: header {rows[0]}, ids {[r[0] for r in rows]}")
+        for row, item in zip(rows[1:], mapping.values()):
+            has_mask = "mask" in item
+            mask = (mask_decode(item["mask"]) if has_mask else np.zeros((512, 512)))[..., None]
+            for m, cell in zip(ev.DEFAULT_METRICS, row[1:]):
+                nan = ev._nan_sentinel(m, mask.repeat(3, axis=2), has_mask,
+                                       item["original_prompt"])
+                if nan != (cell == "nan") or (not nan and not np.isfinite(float(cell))):
+                    raise AssertionError(f"evaluation CSV: {row[0]} {m} = {cell!r}")
+
+        # the first image's row on the host CPU, with the card's weights
+        host = copy.copy(calc)
+        host.device = torch.device("cpu")
+        for name in ("clip_vision", "clip_text", "clip_text_proj", "lpips", "dino"):
+            setattr(host, name, copy.deepcopy(getattr(calc, name)).cpu())
+        item = next(iter(mapping.values()))
+        mask = mask_decode(item["mask"])[..., None].repeat(3, axis=2)
+        src = Image.open(os.path.join(src_folder, item["image_path"]))
+        tgt = ev.crop_edit_panel(Image.open(os.path.join(folders[EVAL_METHOD],
+                                                         item["image_path"])))
+        src_p, tgt_p = (x.replace("[", "").replace("]", "") for x in
+                        (item["original_prompt"], item["editing_prompt"]))
+        worst, values, t0 = {}, {}, time.perf_counter()
+        for m, cell in zip(ev.DEFAULT_METRICS, rows[1][1:]):
+            want = ev.calculate_metric(host, m, src, tgt, mask, mask, src_p, tgt_p)
+            values[m] = [float(cell), want]
+        for name, img, txt in (("raw_clip_cos_source", src, src_p),
+                               ("raw_clip_cos_target", tgt, tgt_p)):
+            values[name] = [calc.clip_cosine(img, txt), host.clip_cosine(img, txt)]
+        t_host = time.perf_counter() - t0
+        for name, (got, want) in values.items():
+            worst[name] = abs(got - want) / max(abs(want), 1e-6)
+    if max(worst.values()) > EVAL_CPU_RTOL:
+        raise AssertionError(f"the card's metrics differ from the CPU's: {worst}")
+    n = len(mapping)
+    return {"items": n, "metrics": ev.DEFAULT_METRICS, "calculator_init_s": t_init,
+            "evaluate_s": t_eval, "s_per_image": t_eval / n,
+            "s_per_family": {k: sum(v) for k, v in family_s.items()},
+            "calls_per_family": {k: len(v) for k, v in family_s.items()},
+            "peak_mem_gib": peak, "rel_diff_card_vs_cpu_first_row": worst,
+            "first_row_card_cpu": values, "cpu_row_s": t_host}
+
+
 BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
+F32_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_f32.cu"
 TPU_FLASH = "pnpinversion_tpu/ops/flash_attention.py"
+
+
+def _f32_entries(f32: dict, f32_path: dict) -> list:
+    """The f32 kernels' entries of the kernels line: the forward at the f32
+    DirectInversion scan's 64^2 shape (3 rows) with its launches in the f32
+    directinversion+p2p edit, the dQ and dK/dV kernels at the f32 null-text
+    inner loop's 64^2 shape with their launches in the f32 null-text edit.
+    SDPA's backward computes dQ, dK and dV together, so the dK/dV entry's
+    times are the whole f32 backward's (delta, dQ, dK/dV), like with like,
+    and the kernel's own times stand beside them."""
+    fwd = next(r for r in f32["fwd_rows"] if r["case"] == "f32_rows3_64x64")
+    bwd = next(r for r in f32["bwd_rows"] if r["case"] == "f32_nulltext_64x64")
+    err = f32["max_abs_err"]
+    di, nt = f32_path["directinversion+p2p"]["launches"], f32_path[NULL_TEXT]["launches"]
+    by_path = {"fwd": {"f32 directinversion+p2p": di["fwd"], f"f32 {NULL_TEXT}": nt["fwd"]},
+               "bwd": {f"f32 {NULL_TEXT}": nt["dq"]}}
+    common = {"route": "cuda", "source": F32_SOURCE}
+    return [
+        {"name": "flash_attention_fwd_f32", **common, "replaces": f"{TPU_FLASH}:60",
+         "launches": di["fwd"], "launches_by_path": by_path["fwd"],
+         "max_abs_err": max(err["o"], err["lse"]), "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+         "library_ms": fwd["library_ms"], "tf32_bound_ms": fwd["tf32_bound_ms"],
+         "shape": fwd["shape"], "per_case": f32["fwd_rows"]},
+        {"name": "flash_attention_bwd_dq_f32", **common, "replaces": f"{TPU_FLASH}:99",
+         "launches": nt["dq"], "launches_by_path": by_path["bwd"], "max_abs_err": err["dq"],
+         "ms": bwd["dq_ms"], "plain_ms": bwd["plain_dq_ms"], "bound_ms": bwd["dq_bound_ms"],
+         "bound_by": bwd["dq_bound_by"], "library_ms": None,
+         "tf32_bound_ms": bwd["dq_tf32_bound_ms"], "shape": bwd["shape"]},
+        {"name": "flash_attention_bwd_dkv_f32", **common, "replaces": f"{TPU_FLASH}:128",
+         "launches": nt["dkv"], "launches_by_path": by_path["bwd"],
+         "max_abs_err": max(err["dk"], err["dv"]), "ms": bwd["bwd_ms"],
+         "plain_ms": bwd["plain_bwd_ms"], "bound_ms": bwd["bwd_bound_ms"],
+         "bound_by": bwd["bwd_bound_by"], "library_ms": bwd["library_bwd_ms"],
+         "tf32_bound_ms": bwd["bwd_tf32_bound_ms"],
+         "ms_covers": "the whole f32 backward (delta, dQ, dK/dV), as SDPA's",
+         "library_computes": "dq, dk and dv (the whole backward of f32 SDPA)",
+         "dkv_kernel_ms": bwd["dkv_ms"], "dkv_kernel_plain_ms": bwd["plain_dkv_ms"],
+         "dkv_kernel_bound_ms": bwd["dkv_bound_ms"], "shape": bwd["shape"],
+         "per_case": f32["bwd_rows"]},
+    ]
 
 
 def _bwd_entries(bwd: dict, launches: dict) -> list:
@@ -989,7 +1436,7 @@ def main() -> int:
         return 1
     from pnpinversion_tpu_torch.configs import SD14
     from pnpinversion_tpu_torch.ops import build
-    from pnpinversion_tpu_torch.ops.flash_attention import BWD_KERNEL, KERNEL
+    from pnpinversion_tpu_torch.ops.flash_attention import BWD_KERNEL, F32_KERNEL, KERNEL
     from pnpinversion_tpu_torch.pipeline import SDPipeline
 
     t_start = time.perf_counter()
@@ -1001,9 +1448,9 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    build_s = build.build([KERNEL, BWD_KERNEL])
+    build_s = build.build([KERNEL, BWD_KERNEL, F32_KERNEL])
     print(f"build: {json.dumps(build_s)} total {time.perf_counter() - t0:.1f}s", flush=True)
-    for name in (KERNEL, BWD_KERNEL):
+    for name in (KERNEL, BWD_KERNEL, F32_KERNEL):
         summary = ptxas_summary(build.build_log(name))
         print(f"ptxas {name}.cu:", *summary, sep="\n  ", flush=True)
         lost = [line for line in summary if re.search(
@@ -1014,12 +1461,13 @@ def main() -> int:
 
     flash = kernel_phase()
     bwd = bwd_kernel_phase()
+    f32 = f32_kernel_phase()
     _record_path_shapes()
     pipe, t_create = _sync_time(lambda: SDPipeline.create(SD14, seed=0, num_ddim_steps=50))
     assert pipe.device.type == "cuda" and pipe.dtype == torch.bfloat16
     main_path = main_path_phase(pipe)
     print("main_path", json.dumps({"create_s": t_create, **main_path}), flush=True)
-    batched = batched_phase(pipe, main_path["edit_s_per_image"])
+    batched, batch_out = batched_phase(pipe, main_path["edit_s_per_image"])
     print("batched_path", json.dumps(batched), flush=True)
     null_text = null_text_phase(pipe)
     print("null_text_path", json.dumps(null_text), flush=True)
@@ -1029,7 +1477,13 @@ def main() -> int:
     batched_variants = batched_variants_phase(pipe)
     early_stop = early_stop_phase(pipe)
     print("batched_null_text_early_stop", json.dumps(early_stop), flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    f32_path = f32_path_phase()
+    print("f32_path_summary", json.dumps(f32_path), flush=True)
     print("path_shapes", json.dumps(_check_path_shapes()), flush=True)
+    evaluation = eval_phase(batch_out)
+    print("evaluation", json.dumps(evaluation), flush=True)
 
     head = next(r for r in flash["rows"] if r["case"] == "scan_64x64")
     nt_launches = null_text["launches"]
@@ -1056,7 +1510,7 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": head["shape"], "per_case": flash["rows"]},
-        *bwd_entries,
+        *bwd_entries, *_f32_entries(f32, f32_path),
     ]}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

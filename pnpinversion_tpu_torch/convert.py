@@ -22,8 +22,10 @@ from pnpinversion_tpu_torch.configs import (
     VAEConfig,
 )
 from pnpinversion_tpu_torch.models.clip_text import CLIPTextModel
+from pnpinversion_tpu_torch.models.lpips import LPIPS
 from pnpinversion_tpu_torch.models.unet import UNet
 from pnpinversion_tpu_torch.models.vae import VAE
+from pnpinversion_tpu_torch.models.vit import ViT, ViTConfig
 
 StateDict = Dict[str, np.ndarray]
 
@@ -151,6 +153,55 @@ def clip_text_state_dict(params) -> StateDict:
     return sd
 
 
+def vit_state_dict(params, config: ViTConfig) -> StateDict:
+    """The JAX ViT tree in the port's names (the tree's own, fused qkv). A
+    DINO tree without ``patch_bias`` (the JAX init has none) gets a zero one."""
+    sd: StateDict = {"cls_token": np.asarray(params["cls_token"]),
+                     "pos_embed": np.asarray(params["pos_embed"])}
+    patch = {"kernel": params["patch_embed"]}
+    if config.style == "dino":
+        patch["bias"] = params.get("patch_bias", np.zeros((config.width,), np.float32))
+    _conv(sd, "patch_embed", patch)
+    if config.style == "clip":
+        _norm(sd, "pre_layernorm", params["pre_layernorm"])
+        _norm(sd, "post_layernorm", params["post_layernorm"])
+        _lin(sd, "projection", params["projection"])
+    else:
+        _norm(sd, "norm", params["norm"])
+    for i, lp in enumerate(params["layers"]):
+        for k in ("ln1", "ln2"):
+            _norm(sd, f"layers.{i}.{k}", lp[k])
+        for k in ("qkv", "out_proj", "fc1", "fc2"):
+            _lin(sd, f"layers.{i}.{k}", lp[k])
+    return sd
+
+
+def lpips_state_dict(params) -> StateDict:
+    sd: StateDict = {}
+    _conv(sd, "conv0", params["conv0"])
+    for i, fire in enumerate(params["fires"]):
+        for k in ("squeeze", "expand1", "expand3"):
+            _conv(sd, f"fires.{i}.{k}", fire[k])
+    for i, lin in enumerate(params["lins"]):
+        _conv(sd, f"lins.{i}", lin)
+    return sd
+
+
+def metric_modules_from_jax_params(params: Dict[str, Any], clip_vision: ViTConfig,
+                                   clip_text: CLIPTextConfig, dino: ViTConfig) -> dict:
+    """The JAX ``MetricsCalculator``'s tree (``clip_vision``, ``clip_text``,
+    ``clip_text_proj``, ``lpips``, ``dino``; numpy leaves) -> the port's
+    modules of the same names, on the CPU in f32."""
+    proj = params["clip_text_proj"]["kernel"]
+    with torch.device("meta"):
+        text_proj, lpips = torch.nn.Linear(*np.shape(proj), bias=False), LPIPS()
+    return {"clip_vision": from_jax_params(params["clip_vision"], clip_vision),
+            "clip_text": from_jax_params(params["clip_text"], clip_text),
+            "clip_text_proj": _load(text_proj, {"weight": np.asarray(proj).T}),
+            "lpips": _load(lpips, lpips_state_dict(params["lpips"])),
+            "dino": from_jax_params(params["dino"], dino)}
+
+
 def _load(module: torch.nn.Module, sd: StateDict) -> torch.nn.Module:
     module.load_state_dict(
         {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()},
@@ -161,9 +212,9 @@ def _load(module: torch.nn.Module, sd: StateDict) -> torch.nn.Module:
 def from_jax_params(params: Dict[str, Any], config):
     """JAX param tree (numpy leaves) -> the port's module(s) on the CPU, in f32.
 
-    config: a UNetConfig, VAEConfig or CLIPTextConfig gives that one module; a
-    StableDiffusionConfig (params {'unet', 'vae', 'text'}) gives a dict of all
-    three."""
+    config: a UNetConfig, VAEConfig, CLIPTextConfig or ViTConfig gives that
+    one module; a StableDiffusionConfig (params {'unet', 'vae', 'text'}) gives
+    a dict of all three."""
     if isinstance(config, StableDiffusionConfig):
         return {"unet": from_jax_params(params["unet"], config.unet),
                 "vae": from_jax_params(params["vae"], config.vae),
@@ -175,6 +226,8 @@ def from_jax_params(params: Dict[str, Any], config):
             module, sd = VAE(config), vae_state_dict(params)
         elif isinstance(config, CLIPTextConfig):
             module, sd = CLIPTextModel(config), clip_text_state_dict(params)
+        elif isinstance(config, ViTConfig):
+            module, sd = ViT(config), vit_state_dict(params, config)
         else:
             raise TypeError(f"no module for config {type(config).__name__}")
     return _load(module, sd)

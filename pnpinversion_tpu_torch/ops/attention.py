@@ -40,7 +40,8 @@ def apply_probs(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def use_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
     """The JAX package's shape rule for its Pallas kernel, on CUDA tensors:
-    long self-attention whose sequences tile by 128."""
+    long self-attention whose sequences tile by 128. The dtype picks the
+    kernel (bf16 or f32; any other raises in the kernel's wrapper)."""
     s, sk = q.shape[2], k.shape[2]
     return q.is_cuda and s >= 1024 and s % 128 == 0 and sk % 128 == 0
 

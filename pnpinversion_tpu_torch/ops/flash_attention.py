@@ -2,17 +2,21 @@
 plain PyTorch versions, the wrappers that pick between them by the tensors'
 device, and the ``FlashAttention`` autograd Function that joins them.
 
-The kernels replace the TPU kernels of ``pnpinversion_tpu/ops/flash_attention.py``:
+The kernels replace the TPU kernels of ``pnpinversion_tpu/ops/flash_attention.py``,
+which run in the inputs' storage dtype, bf16 or f32. For bf16,
 ``csrc/flash_attention_fwd.cu`` replaces ``_flash_kernel``, and
 ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel`` with one pass over the scores (a prep kernel, the
-main kernel, a dQ convert kernel); each header says what bounds it on an
-H100 and what the design does about that. Layout is the JAX package's: q (B, H, Sq, D),
-k/v (B, H, Sk, D); the forward returns O in the input dtype and the row
-log-sum-exp LSE (B, H, Sq) in f32, which the backward reads.
+main kernel, a dQ convert kernel). For f32, ``csrc/flash_attention_f32.cu``
+replaces all three one for one (a forward, a dQ and a dK/dV kernel). Each
+header says what bounds it on an H100 and what the design does about that.
+Layout is the JAX package's: q (B, H, Sq, D), k/v (B, H, Sk, D); the forward
+returns O in the input dtype and the row log-sum-exp LSE (B, H, Sq) in f32,
+which the backward reads.
 
 On a CPU tensor a wrapper runs the plain version. On a CUDA tensor it
-launches the kernel or raises: there is no fallback.
+launches the kernel of the tensors' dtype (bf16 or f32) or raises: there is
+no fallback.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from pnpinversion_tpu_torch.ops import build
 
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
+F32_KERNEL = "flash_attention_f32"
 MAX_HEAD_DIM = 128
 BWD_BLOCK_Q = 64  # query rows per tile of the backward's stats and dQ accumulator
 LOG2E = math.log2(math.e)
@@ -60,12 +65,11 @@ def _probs_and_ds(q, k, v, lse, do, delta, scale):
     return p, p * (dp - delta.to(acc)[..., None])
 
 
-def flash_attention_bwd_dq_reference(q, k, v, out, lse, do, scale):
-    """Plain (dQ, delta = rowsum(dO * O)): the dQ half of the plain backward."""
-    acc = _acc(q)
-    delta = (do.to(acc) * out.to(acc)).sum(dim=-1)
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale):
+    """Plain dQ from the forward's LSE and delta = rowsum(dO * O): the dQ
+    half of the plain backward."""
     _, ds = _probs_and_ds(q, k, v, lse, do, delta, scale)
-    return (torch.matmul(ds, k.to(acc)) * scale).to(q.dtype), delta
+    return (torch.matmul(ds, k.to(_acc(q))) * scale).to(q.dtype)
 
 
 def _dk_dv(q, k, v, do, p, ds, scale):
@@ -82,8 +86,10 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale):
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, scale):
     """Plain backward (the JAX package's ``_flash_bwd_rule``): (dQ, dK, dV)."""
-    dq, delta = flash_attention_bwd_dq_reference(q, k, v, out, lse, do, scale)
-    return (dq,) + flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    acc = _acc(q)
+    delta = (do.to(acc) * out.to(acc)).sum(dim=-1)
+    return ((flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale),)
+            + flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale))
 
 
 def _tiles(sq: int) -> int:
@@ -139,12 +145,18 @@ def _check_strided(name: str, x: torch.Tensor) -> None:
                          f"strides {x.stride()}")
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           dtype: torch.dtype = torch.bfloat16) -> None:
+    """Raises unless q/k/v are ``dtype`` tensors of one CUDA device in shapes
+    and strides the kernels take. The dtype first: the wrappers route f32 to
+    the f32 kernels and everything else here, so any dtype but those two
+    raises ``TypeError``."""
+    if not (q.dtype == k.dtype == v.dtype == dtype):
+        raise TypeError(f"flash kernels take bf16 or f32 (q, k and v alike); this one takes "
+                        f"{dtype}, got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash kernel: q/k/v must share one CUDA device, got "
                          f"{q.device}/{k.device}/{v.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash kernel takes bf16 only, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash kernel: q (B,H,Sq,D), k/v (B,H,Sk,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -257,7 +269,9 @@ def _no_grad_tracking(name: str, *xs: torch.Tensor) -> None:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, LSE) of non-causal softmax attention. q/k/v may be strided views
+    """(O, LSE) of non-causal softmax attention: the bf16 kernel, or on f32
+    inputs the f32 one (``flash_attention_fwd_f32``; this wrapper's count is
+    the bf16 kernel's launches). q/k/v may be strided views
     (e.g. heads split from a (B, S, H*D) tensor); O comes back as a (B, H, Sq,
     D) view of a (B, Sq, H, D) buffer, so merging heads afterwards is free.
     Raises on inputs that require grad while grad mode is on: only
@@ -265,6 +279,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _no_grad_tracking("flash_attention_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
+    if q.dtype == torch.float32:
+        return flash_attention_fwd_f32(q, k, v, scale)
     _check(q, k, v)
     b, h, sq, d = q.shape
     out, lse = _launch_fwd(q, k, v, scale, fwd_tile_rows(b * h, sq, _sm_count(q.device.index)))
@@ -425,17 +441,24 @@ BWD_WRAPPERS = (flash_attention_bwd_prep, flash_attention_bwd_main,
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, scale):
-    """(dQ, dK, dV) of ``flash_attention_fwd``: the prep, main and dQ convert
-    kernels in turn, on inputs checked once (the plain versions on CPU
-    tensors). A dO whose strides the kernels do not take (e.g. an expanded
+    """(dQ, dK, dV) of ``flash_attention_fwd``: for bf16 the prep, main and dQ
+    convert kernels in turn, on inputs checked once; for f32 delta =
+    rowsum(dO * O) (one reduction, as the JAX package takes it outside its
+    kernels) and then the f32 dQ and dK/dV kernels. The plain versions on CPU
+    tensors. A dO whose strides the kernels do not take (e.g. an expanded
     gradient) is made contiguous first: a copy, not a fallback."""
-    if not do.is_cuda:
+    if do.device.type == "cpu":
         stats, dq_acc = flash_attention_bwd_prep(out, lse, do)
         dk, dv = flash_attention_bwd_main(q, k, v, do, stats, dq_acc, scale)
         return flash_attention_bwd_dq_convert(dq_acc, q, scale), dk, dv
     _no_grad_tracking("flash_attention_bwd", q, k, v, out, do)
     if not _takes_strides(do):
         do = do.contiguous()
+    if q.dtype == torch.float32:
+        _check_like(q, (("out", out), ("do", do)))
+        delta = (do * out).sum(dim=-1).contiguous()
+        return ((flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, scale),)
+                + flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, scale))
     _check_bwd(q, k, v, lse, do, (("out", out), ("do", do)))
     stream, scale = _stream(q), float(scale)
     stats, dq_acc = _launch_bwd_prep(out, lse, do, stream)
@@ -444,10 +467,114 @@ def flash_attention_bwd(q, k, v, out, lse, do, scale):
     return _launch_bwd_dq_convert(dq_acc, q, scale, stream), dk, dv
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_kernels() -> types.SimpleNamespace:
+    """The C entries of ``csrc/flash_attention_f32.cu``: the forward, and the
+    backward that runs the dQ or the dK/dV kernel."""
+    lib = build.load(F32_KERNEL)
+    ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+    fns = types.SimpleNamespace(fwd=lib.pnpi_flash_attention_fwd_f32,
+                                bwd=lib.pnpi_flash_attention_bwd_f32)
+    fns.fwd.argtypes = [ptr] * 5 + [i64] * 12 + [i32] * 5 + [f32, ptr]
+    fns.bwd.argtypes = [ptr] * 9 + [i64] * 21 + [i32] * 5 + [f32, i32, ptr]
+    for fn in vars(fns).values():
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def _launch_fwd_f32(q, k, v, scale: float):
+    """One launch of the f32 forward kernel on inputs ``_check`` has passed."""
+    b, h, sq, d = q.shape
+    out = _heads_last(b, h, sq, d, q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = _f32_kernels().fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        b, h, sq, k.shape[2], d, scale, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"f32 flash kernel launch failed: cudaError {err} for q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    return out, lse
+
+
+def _launch_bwd_f32(q, k, v, do, lse, delta, scale: float, dq_only: bool):
+    """One launch of the f32 dQ kernel (``dq_only``) or dK/dV kernel on
+    checked inputs: dQ, or (dK, dV), each a (B, H, S, D) view of a (B, S, H,
+    D) buffer."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dq = _heads_last(b, h, sq, d, q) if dq_only else q
+    dk, dv = (k, v) if dq_only else (_heads_last(b, h, sk, d, k), _heads_last(b, h, sk, d, v))
+    _raise_on(_f32_kernels().bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+        *dv.stride()[:3], b, h, sq, sk, d, scale, int(dq_only), _stream(q)),
+        "f32 dQ" if dq_only else "f32 dK/dV", q)
+    return dq if dq_only else (dk, dv)
+
+
+def flash_attention_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, LSE) of f32 q/k/v: the f32 forward kernel (FMAs in f32 on the CUDA
+    cores), its plain version on CPU tensors. Strided views as for
+    ``flash_attention_fwd``; O comes back as a (B, H, Sq, D) view of a (B, Sq,
+    H, D) buffer."""
+    _no_grad_tracking("flash_attention_fwd_f32", q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    _check(q, k, v, torch.float32)
+    out, lse = _launch_fwd_f32(q, k, v, float(scale))
+    flash_attention_fwd_f32.launches += 1
+    return out, lse
+
+
+def _check_stats(q, lse, delta) -> None:
+    for name, x in (("lse", lse), ("delta", delta)):
+        _check_f32(name, x, tuple(q.shape[:3]), q)
+
+
+def flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, scale):
+    """dQ of f32 inputs from the forward's LSE and delta = rowsum(dO * O), each
+    a contiguous (B, H, Sq) f32 tensor: the f32 dQ kernel (one CTA per 64
+    queries walks every key, no atomics), its plain version on CPU tensors."""
+    _no_grad_tracking("flash_attention_bwd_dq_f32", q, k, v, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+    _check(q, k, v, torch.float32)
+    _check_like(q, (("do", do),))
+    _check_stats(q, lse, delta)
+    dq = _launch_bwd_f32(q, k, v, do, lse, delta, float(scale), True)
+    flash_attention_bwd_dq_f32.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, scale):
+    """(dK, dV) of f32 inputs from the forward's LSE and delta: the f32 dK/dV
+    kernel (one CTA per 64 keys walks every query, no atomics), its plain
+    version on CPU tensors."""
+    _no_grad_tracking("flash_attention_bwd_dkv_f32", q, k, v, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    _check(q, k, v, torch.float32)
+    _check_like(q, (("do", do),))
+    _check_stats(q, lse, delta)
+    dk, dv = _launch_bwd_f32(q, k, v, do, lse, delta, float(scale), False)
+    flash_attention_bwd_dkv_f32.launches += 1
+    return dk, dv
+
+
+flash_attention_fwd_f32.launches = 0
+flash_attention_bwd_dq_f32.launches = 0
+flash_attention_bwd_dkv_f32.launches = 0
+F32_WRAPPERS = (flash_attention_fwd_f32, flash_attention_bwd_dq_f32,
+                flash_attention_bwd_dkv_f32)
+
+
 class FlashAttention(torch.autograd.Function):
     """O = softmax(scale q k^T) v, differentiable in q, k and v: the forward
-    kernel saves (q, k, v, O, LSE) and the backward runs the backward's three
-    kernels (the plain versions on CPU tensors)."""
+    kernel of the inputs' dtype saves (q, k, v, O, LSE) and the backward runs
+    that dtype's backward kernels (the plain versions on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):

@@ -4,7 +4,10 @@ dtype.
 
 ``SDPipeline.create`` runs on ``cuda`` unless the caller passes a device; with
 no CUDA device and no device given it raises. The dtype defaults to bf16 on
-the card and f32 on the CPU, and every float parameter is cast to it.
+the card and f32 on the CPU, and every float parameter is cast to it. An f32
+pipeline on the card runs in full f32: ``create`` turns TF32 off for f32
+matrix products and cuDNN convolutions (``utils.device.use_full_f32``, for
+the process), as the JAX package's f32 path and the CPU reference compute.
 """
 from __future__ import annotations
 
@@ -21,17 +24,8 @@ from pnpinversion_tpu_torch.models.layers import init_random_
 from pnpinversion_tpu_torch.models.unet import UNet, lb_resolution, num_lb_slots
 from pnpinversion_tpu_torch.models.vae import VAE
 from pnpinversion_tpu_torch.schedulers.ddim import DDIMSchedule, make_ddim_schedule
+from pnpinversion_tpu_torch.utils.device import resolve_device, use_full_f32
 from pnpinversion_tpu_torch.utils.tokenizer import default_tokenizer
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else ``cuda``; raises when CUDA is absent and no
-    device was asked for (never a quiet fall back to the CPU)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
-    return torch.device("cuda")
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -62,9 +56,12 @@ class SDPipeline:
     ) -> "SDPipeline":
         """Random-weight pipeline (the JAX package's init distributions, drawn
         from ``seed`` on the device), or the weights of a JAX param tree with
-        numpy leaves when ``jax_params`` is given."""
+        numpy leaves when ``jax_params`` is given. f32 on CUDA turns TF32 off
+        for the process (full f32, see the module docstring)."""
         device = resolve_device(device)
         dtype = dtype or default_dtype(device)
+        if dtype == torch.float32 and device.type == "cuda":
+            use_full_f32()
         if jax_params is not None:
             modules = from_jax_params(jax_params, config)
         else:

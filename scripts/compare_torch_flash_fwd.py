@@ -87,10 +87,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for name, b, h, sq, sk, d, strided, timed in chip_smoke.FLASH_CASES:
-        if not timed:
+    for name, b, h, sq, sk, d, strided, timed, dtype in chip_smoke.FLASH_CASES:
+        if not timed or dtype != "bf16":
             continue
-        q, k, v = (chip_smoke._bf16_heads(gen, b, h, s, d, strided) for s in (sq, sk, sk))
+        q, k, v = (chip_smoke._heads(gen, b, h, s, d, strided) for s in (sq, sk, sk))
         scale = d ** -0.5
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, scale)
         err_new = [max(e) for e in zip(*(errors(*fa._launch_fwd(q, k, v, scale, tile), o_ref,

@@ -219,3 +219,85 @@ def test_ptxas_summary_names_every_kernel(entry, want):
     assert chip_smoke.ptxas_summary(log) == [
         want, "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
         "instructions are serialized"]
+
+
+def _meta(dtype, *shapes):
+    return [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
+
+
+@pytest.mark.parametrize("dtype,family", [(torch.float32, "f32"), (torch.bfloat16, "bf16")])
+def test_kernels_dispatch_by_dtype(monkeypatch, dtype, family):
+    """On a non-CPU device the forward and the backward launch the kernels of
+    the inputs' dtype: f32 the f32 kernels (their own launch counts), bf16 the
+    wgmma kernels. Meta tensors stand in for CUDA ones, the launches and the
+    device half of the checks are stubbed, so this runs without a card."""
+    launched = []
+
+    def check(q, k, v, want=torch.bfloat16):
+        if not q.dtype == k.dtype == v.dtype == want:
+            raise TypeError(want)
+
+    def launch(name, result):
+        def fn(*args):
+            launched.append(name)
+            return result(*args)
+        return fn
+
+    def out_lse(q, *_):
+        return torch.empty_like(q), torch.empty(q.shape[:3], device=q.device)
+
+    monkeypatch.setattr(tflash, "_check", check)
+    monkeypatch.setattr(tflash, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(tflash, "_stream", lambda x: 0)
+    monkeypatch.setattr(tflash, "_launch_fwd", launch("bf16 fwd", out_lse))
+    monkeypatch.setattr(tflash, "_launch_fwd_f32", launch("f32 fwd", out_lse))
+    monkeypatch.setattr(tflash, "_launch_bwd_prep", launch("bf16 prep", lambda o, *_: (o, o)))
+    monkeypatch.setattr(tflash, "_launch_bwd_main", launch(
+        "bf16 main", lambda q, k, v, *_: (torch.empty_like(k), torch.empty_like(v))))
+    monkeypatch.setattr(tflash, "_launch_bwd_dq_convert",
+                        launch("bf16 convert", lambda acc, q, *_: torch.empty_like(q)))
+    monkeypatch.setattr(tflash, "_launch_bwd_f32", launch(
+        "f32 bwd", lambda q, k, v, *args: torch.empty_like(q) if args[-1] else (
+            torch.empty_like(k), torch.empty_like(v))))
+    monkeypatch.setattr(tflash, "_check_acc", lambda *_: None)
+
+    q, k, v, do = _meta(dtype, (1, 2, 128, 40), (1, 2, 64, 40), (1, 2, 64, 40),
+                        (1, 2, 128, 40))
+    before = {fn: fn.launches for fn in (tflash.flash_attention_fwd,) + tflash.F32_WRAPPERS}
+    out, lse = tflash.flash_attention_fwd(q, k, v, 0.1)
+    dq, dk, dv = tflash.flash_attention_bwd(q, k, v, out, lse, do, 0.1)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    moved = {fn.__name__: fn.launches - n for fn, n in before.items()}
+    if family == "f32":
+        assert launched == ["f32 fwd", "f32 bwd", "f32 bwd"]
+        assert moved == {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 1,
+                         "flash_attention_bwd_dq_f32": 1, "flash_attention_bwd_dkv_f32": 1}
+    else:
+        assert launched == ["bf16 fwd", "bf16 prep", "bf16 main", "bf16 convert"]
+        assert moved == {"flash_attention_fwd": 1, "flash_attention_fwd_f32": 0,
+                         "flash_attention_bwd_dq_f32": 0, "flash_attention_bwd_dkv_f32": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_kernels_refuse_other_dtypes(dtype):
+    """Off the CPU a dtype that is neither bf16 nor f32 raises TypeError
+    before anything launches (meta tensors stand in for CUDA ones)."""
+    q, k, v = _meta(dtype, (1, 2, 128, 40), (1, 2, 64, 40), (1, 2, 64, 40))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tflash.flash_attention_fwd(q, k, v, 0.1)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tflash.flash_attention_bwd(q, k, v, q, torch.empty(q.shape[:3], device="meta"), q, 0.1)
+
+
+def test_f32_plain_kernels_compose_to_reference():
+    """The f32 kernels' plain versions (dQ, dK/dV from LSE and delta), chained
+    as flash_attention_bwd chains the kernels, give the plain backward."""
+    rng = np.random.RandomState(6)
+    q, do = (torch.from_numpy(rng.randn(1, 2, 70, 16).astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(1, 2, 33, 16).astype(np.float32)) for _ in range(2))
+    out, lse = tflash.flash_attention_fwd_f32(q, k, v, 0.25)
+    delta = (do * out).sum(-1)
+    got = ((tflash.flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, 0.25),)
+           + tflash.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, 0.25))
+    for g, w in zip(got, tflash.flash_attention_bwd_reference(q, k, v, out, lse, do, 0.25)):
+        assert rel_err(g, w) <= GRAD_RTOL

@@ -70,10 +70,11 @@ def test_kernel_takes_expanded_inputs_on_cuda(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_raises_on_cuda(cuda_device):
-    """On a CUDA tensor the wrapper launches the kernel or raises."""
-    x32 = torch.zeros(1, 2, 128, 40, device=cuda_device)
+    """On a CUDA tensor the wrapper launches the kernel or raises: f16 (neither
+    bf16 nor f32) and a head dim past 128 raise."""
+    x16 = torch.zeros(1, 2, 128, 40, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
-        tflash.flash_attention_fwd(x32, x32, x32, 0.1)
+        tflash.flash_attention_fwd(x16, x16, x16, 0.1)
     x = torch.zeros(1, 2, 128, 136, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tflash.flash_attention_fwd(x, x, x, 0.1)
@@ -192,3 +193,75 @@ def test_flash_attention_function_round_trip_on_cuda(cuda_device):
                                                 do, 80 ** -0.5)
     for g, w in zip((q.grad, k.grad, v.grad), want):
         assert ((g.float() - w.float()).abs().max() / w.float().abs().max()).item() <= 2e-2
+
+
+def _f32_inputs(device, b, sq, sk, d, strided, seed=3):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(s):
+        if strided:  # heads split from (B, S, H*D), as the UNet makes them
+            return torch.randn((b, s, 8 * d), generator=gen, device=device).view(
+                b, s, 8, d).transpose(1, 2)
+        return torch.randn((b, 8, s, d), generator=gen, device=device)
+
+    return make(sq), make(sk), make(sk), make(sq)
+
+
+@pytest.fixture
+def full_f32(cuda_device):
+    """TF32 off for the plain versions, as the f32 pipeline runs."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,d,strided", [
+    (1, 4096, 4096, 40, True), (3, 1024, 1024, 80, True), (1, 1000, 77, 40, False),
+    (2, 1000, 1000, 80, True), (1, 1024, 1024, 128, False), (2, 200, 330, 16, False)])
+def test_f32_kernels_match_plain_on_cuda(full_f32, b, sq, sk, d, strided):
+    """The f32 forward, dQ and dK/dV kernels against their plain versions in
+    full f32: O within 2e-5 of max |O|, LSE within 1e-5, the gradients within
+    1e-4 of their largest value, and the backward bit-identical run to run."""
+    q, k, v, do = _f32_inputs(full_f32, b, sq, sk, d, strided)
+    scale = d ** -0.5
+    before = [fn.launches for fn in tflash.F32_WRAPPERS]
+    out, lse = tflash.flash_attention_fwd(q, k, v, scale)
+    grads = [tflash.flash_attention_bwd(q, k, v, out, lse, do, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in tflash.F32_WRAPPERS] == [n + m for n, m in zip(before,
+                                                                                 (1, 2, 2))]
+    want, lse_want = tflash.flash_attention_reference(q, k, v, scale)
+    assert out.dtype == torch.float32
+    assert ((out - want).abs().max() / want.abs().max()).item() <= 2e-5
+    assert (lse - lse_want).abs().max().item() <= 1e-5
+    for g, w in zip(grads[0], tflash.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)):
+        assert g.dtype == torch.float32
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+def test_f32_pipeline_unet_call_on_cuda(cuda_device):
+    """An f32 SD1.4 pipeline on the card (TF32 turned off by create) runs a
+    UNet call through the f32 forward kernel at its 10 flash sites."""
+    from pnpinversion_tpu_torch.configs import SD14
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        pipe = SDPipeline.create(SD14, device="cuda", dtype=torch.float32)
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        x = torch.randn((1, 64, 64, 4), generator=gen, device=cuda_device)
+        before = tflash.flash_attention_fwd_f32.launches, tflash.flash_attention_fwd.launches
+        with torch.inference_mode():
+            eps, _ = pipe.unet(x, 500, pipe.encode_prompt(["a cat on a mat"]))
+        torch.cuda.synchronize()
+        assert eps.shape == x.shape and eps.dtype == torch.float32
+        assert torch.isfinite(eps).all()
+        assert (tflash.flash_attention_fwd_f32.launches - before[0],
+                tflash.flash_attention_fwd.launches - before[1]) == (10, 0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
