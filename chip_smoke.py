@@ -25,7 +25,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of another batch size (the reconstructions are the VAE round trip; with
    a prompt pair per image, the images do not interact);
 6. drive null-text-inversion+p2p: a warm-up edit at 2 DDIM steps, then one
-   edit at 50 whose launches of every kernel are counted and whose phases
+   edit at 25 whose launches of every kernel are counted and whose phases
    are timed to a synchronize each; the backward kernels run in its inner
    Adam loop, which differentiates through the UNet; then one counted
    ``ddim+p2p`` edit;
@@ -35,6 +35,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    DirectInversion ablations), the batched class on 2 images at 3 steps for
    one method of each group (a prompt pair per image), and batched
    null-text's per-image early stop (two images, one of which stops early);
+   then the MasaCtrl, PnP and edit-friendly DDPM families: one counted edit
+   each of ``directinversion+masactrl``, ``directinversion+pnp`` and
+   ``edit-friendly-inversion+p2p`` at 50 steps (timed per phase), their
+   batched classes on 4 images at 50 steps, each image against the
+   single-image editor, images kept in place unmoved when the others
+   change, ``ddim+masactrl`` and ``ddim+pnp`` at 5 steps, and one UNet call
+   under each other MasaCtrl control (union, masks, auto masks);
 8. the f32 pipeline (``SDPipeline.create(..., dtype=torch.float32)``, full
    f32): one counted directinversion+p2p edit and one counted
    null-text-inversion+p2p edit, which launch only the f32 kernels, and one
@@ -78,9 +85,10 @@ EDGE_CASES = [
     ("cross_4096x77", 1, 8, 4096, 77, 40, True, False),
 ]
 # (name, B, H, Sq, Sk, D, strided, timed): strided inputs are heads split from
-# a (B, S, H*D) tensor, as the UNet's attention sites make them. B: 3 rows in
-# the fused DirectInversion scan, 1 in inversion and null-text's inner loop,
-# 2 and 4 in the CFG reconstruction and edit of null-text+p2p and ddim+p2p
+# a (B, S, H*D) tensor, as the UNet's attention sites make them ("q": q
+# only). B: 3 rows in the fused DirectInversion scan, 1 in inversion and
+# null-text's inner loop, 2 and 4 in the CFG reconstruction and edit of
+# null-text+p2p and ddim+p2p
 FLASH_CASES = [
     ("scan_64x64", 3, 8, 4096, 4096, 40, True, True),
     ("scan_32x32", 3, 8, 1024, 1024, 80, True, True),
@@ -105,6 +113,10 @@ FLASH_CASES = [
     ("batch2_scan_32x32", 6, 8, 1024, 1024, 80, True, True),
     ("batch2_cfg_64x64", 8, 8, 4096, 4096, 40, True, True),
     ("batch2_cfg_32x32", 8, 8, 1024, 1024, 80, True, True),
+    # MasaCtrl's union at 4 rows: each row attends to its half's source K/V
+    # and its own, concatenated (Sk = 2 Sq); q strided, k/v contiguous ("q")
+    ("union_64x64", 4, 8, 4096, 8192, 40, "q", True),
+    ("union_32x32", 4, 8, 1024, 2048, 80, "q", True),
 ] + EDGE_CASES
 # the f32 pipeline (SDPipeline.create(..., dtype=torch.float32)) on one
 # image: 1 row in inversion and null-text's inner loop, 3 in the
@@ -316,10 +328,10 @@ def kernel_phase(timing: bool = True) -> dict:
         if dtype != "bf16":
             continue
         timed = timed and timing
-        def make(s):
-            return _heads(gen, b, h, s, d, strided)
+        def make(s, split):
+            return _heads(gen, b, h, s, d, split)
 
-        q, k, v = make(sq), make(sk), make(sk)
+        q, k, v = make(sq, bool(strided)), make(sk, strided is True), make(sk, strided is True)
         scale = d ** -0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         torch.cuda.synchronize()
@@ -578,7 +590,10 @@ TAR = "a square cake with orange frosting on a wooden plate"
 EDIT_KW = dict(guidance_scale=7.5, blend_word=(("cake",), ("cake",)),
                eq_params={"words": ("square",), "values": (2.0,)})
 NULL_TEXT = "null-text-inversion+p2p"
-NULL_TEXT_STEPS = 50  # DDIM steps of the counted null-text edit
+# DDIM steps of the counted null-text edit: 25 since the MasaCtrl, PnP and
+# EF families joined the script (its 500 inner steps at 50 took ~95 s; the
+# shapes, and so the kernels' checks, do not depend on the steps)
+NULL_TEXT_STEPS = 25
 NULL_TEXT_INNER = 10  # the reference's num_inner_steps, the editor's default
 
 
@@ -1129,6 +1144,263 @@ def early_stop_phase(pipe, steps: int = 3) -> dict:
             "embedding_rel_diff_together_vs_alone": rel}
 
 
+FAMILY_RUNS = ("directinversion+masactrl", "directinversion+pnp", "edit-friendly-inversion+p2p")
+FAMILY_STEPS = 50  # DDIM steps of the families' counted edits and batches
+FAMILY_SHORT_RUNS = ("ddim+masactrl", "ddim+pnp")  # counted at VARIANT_STEPS
+EF_SKIP = 12  # the EF editor's default: T forward and T - 12 reverse UNet calls
+
+
+def family_unet_calls(method: str, steps: int) -> int:
+    """UNet calls of one edit of a family, as the code makes them (a batch
+    makes as many, each over every image's rows): MasaCtrl 1 inversion + 1
+    sampling call per step, directinversion+pnp 1 inversion + 1 injection,
+    ddim+pnp also 1 re-denoising, EF T noise-map and T - skip reverse calls."""
+    if method == "edit-friendly-inversion+p2p":
+        return steps + steps - min(EF_SKIP, steps - 1)
+    return (3 if method == "ddim+pnp" else 2) * steps
+
+
+def _family(pipe, method):
+    """(the single-image editor of ``method``'s family on ``pipe``, the
+    phases to time as (owner, attribute), batch(images, prompt pairs) ->
+    (source-row or recon panels, edit panels) through its batched class)."""
+    from pnpinversion_tpu_torch.control.p2p import stack_tensors
+    from pnpinversion_tpu_torch.editors import ef_editor, masactrl_editor, pnp_editor
+    from pnpinversion_tpu_torch.parallel import sweep
+
+    if method.endswith("masactrl"):
+        editor, module = masactrl_editor.MasaCtrlEditor(pipe), masactrl_editor
+        phases = ("ddim_invert_loop", "fused_direct_inversion_edit", "guidance_forward")
+
+        def batch(imgs, prompts):
+            cond = torch.stack([pipe.encode_prompt(["", tar]) for _, tar in prompts])
+            return sweep.BatchedMasaCtrl(pipe).edit_batch(method.startswith("direct"), imgs,
+                                                          cond, 7.5)
+    elif method.endswith("pnp"):
+        editor, module = pnp_editor.PnPEditor(pipe), pnp_editor
+        phases = ("ddim_invert_loop", "ddim_sample_trajectory", "pnp_sample_loop")
+
+        def batch(imgs, prompts):
+            src, tar = (torch.stack([pipe.encode_prompt([pair[i]]) for pair in prompts])
+                        for i in (0, 1))
+            return sweep.BatchedPnP(pipe).edit_batch(method, imgs, src, tar, 7.5)
+    else:
+        editor, module = ef_editor.EditFriendlyEditor(pipe), ef_editor
+        phases = ("ef_forward_process", "ef_reverse_process")
+
+        def batch(imgs, prompts):
+            controls = [ef_editor.ef_control(pipe, list(pair), pipe.schedule.num_steps)
+                        for pair in prompts]
+            if len({c.spec for c, _ in controls}) != 1:
+                raise AssertionError("the images' prompts give different EF specs")
+            cond = torch.stack([pipe.encode_prompt(list(pair)) for pair in prompts])
+            return sweep.BatchedEditFriendly(pipe, skip=EF_SKIP).edit_batch(
+                controls[0][0].spec, imgs, cond, 1.0, 7.5,
+                stack_tensors([t for _, t in controls]))
+    targets = [(module, name) for name in phases] + [(editor, "encode_image"),
+                                                     (editor, "decode_image")]
+    return editor, targets, batch
+
+
+def _timed_calls(targets, seconds: dict):
+    """Replaces each (owner, attribute) by a wrapper that times every call to
+    a synchronize into ``seconds[attribute]`` (summed); returns a function
+    that puts the originals back."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+    for owner, name, fn in saved:
+        def run(*args, _fn=fn, _name=name, **kwargs):
+            out, dt = _sync_time(lambda: _fn(*args, **kwargs))
+            seconds[_name] = seconds.get(_name, 0.0) + dt
+            return out
+        setattr(owner, name, run)
+
+    def restore():
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    return restore
+
+
+def _pipe_at(pipe, steps: int):
+    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+
+    return dataclasses.replace(pipe, schedule=make_ddim_schedule(steps))
+
+
+def families_phase(pipe) -> dict:
+    """MasaCtrl, PnP and edit-friendly DDPM at full SD1.4 width, each family
+    on the same 4 images with a cake prompt pair each:
+
+    - one counted edit through the single-image editor at ``FAMILY_STEPS``
+      (after a warm-up edit at 2 steps), timed per phase to a synchronize,
+      peak memory, strip checked, B1's launches against the code's count;
+    - its batched class on the 4 images at ``FAMILY_STEPS`` (after a warm-up
+      batch at 2 steps): seconds per image, launches, peak memory;
+    - each image's panels against the single-image editor's (the counted
+      edit is image 0's), as uint8 differences;
+    - images kept in place are bit-identical whatever the other images are:
+      at ``INDEPENDENCE_STEPS``, slots 1 and 3 kept and slots 0 and 2
+      replaced must differ from the first batch by no more than that batch
+      from itself (C5: an image's result may depend on its slot, so none
+      moves);
+
+    then one counted edit each of ddim+masactrl and ddim+pnp at
+    ``VARIANT_STEPS``."""
+    size = pipe.config.image_size
+    image = _random_images(4242, size)
+    imgs = np.stack([image() for _ in range(BATCH)])
+    others = np.stack([image() for _ in range(BATCH)])
+    prompts = CAKE_PROMPTS[:BATCH]
+    kept = (1, 3)
+    swapped = np.stack([imgs[i] if i in kept else others[i] for i in range(BATCH)])
+    swapped_prompts = [prompts[i] if i in kept else CAKE_PROMPTS[BATCH] for i in range(BATCH)]
+    rows = {}
+    for method in FAMILY_RUNS:
+        warm_editor, _, warm_batch = _family(_pipe_at(pipe, 2), method)
+        _, t_warm = _sync_time(lambda: warm_editor(method, imgs[0], *prompts[0]))
+        editor, targets, batch = _family(_pipe_at(pipe, FAMILY_STEPS), method)
+        seconds = {}
+        restore = _timed_calls(targets, seconds)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        try:
+            strip, t_edit = _sync_time(lambda: editor(method, imgs[0], *prompts[0]))
+        finally:
+            restore()
+        counts, peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+        _check_strip(strip)
+        calls = family_unet_calls(method, FAMILY_STEPS)
+        _check_launches(method, counts, 1, calls)
+
+        _, t_warm_batch = _sync_time(lambda: warm_batch(imgs, prompts))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        (recon, edits), t_batch = _sync_time(lambda: batch(imgs, prompts))
+        batch_counts, batch_peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+        _check_launches(f"batched {method}", batch_counts, 1, calls)
+        for name, x in (("recon", recon), ("edit", edits)):
+            if x.shape != (BATCH, size, size, 3) or x.dtype != np.uint8:
+                raise AssertionError(f"batched {method} {name} {x.shape} {x.dtype}")
+            if min(float(x[i].std()) for i in range(BATCH)) == 0.0:
+                raise AssertionError(f"a batched {method} {name} image is constant")
+        singles = [strip] + [editor(method, imgs[i], *prompts[i]) for i in range(1, BATCH)]
+        diffs = {"recon_max": [], "recon_mean": [], "edit_max": [], "edit_mean": []}
+        for i, single in enumerate(singles):
+            _check_strip(single)
+            for name, got, col in (("recon", recon[i], 2), ("edit", edits[i], 3)):
+                d_max, d_mean = _diff(got, single[:, col * size:(col + 1) * size])
+                diffs[f"{name}_max"].append(d_max)
+                diffs[f"{name}_mean"].append(d_mean)
+
+        if method == "edit-friendly-inversion+p2p":
+            # the source row rebuilds the image only through the cancellation
+            # of the noise-map pass's eps and the reverse pass's: how far each
+            # path's source-row panel is from the image's VAE round trip
+            with torch.inference_mode():
+                trip = [editor.decode_image(editor.encode_image(im))[0] for im in imgs]
+            diffs["single_recon_vs_vae_round_trip_max_mean"] = [
+                _diff(st[:, 2 * size:3 * size], t) for st, t in zip(singles, trip)]
+            diffs["batched_recon_vs_vae_round_trip_max_mean"] = [
+                _diff(r, t) for r, t in zip(recon, trip)]
+
+        _, _, short_batch = _family(_pipe_at(pipe, INDEPENDENCE_STEPS), method)
+        first = short_batch(imgs, prompts)
+        floor = max(_diff(a[i], b[i])[0] for a, b in zip(first, short_batch(imgs, prompts))
+                    for i in range(BATCH))
+        apart = max(_diff(a[i], b[i])[0] for a, b in zip(first, short_batch(swapped,
+                                                                               swapped_prompts))
+                    for i in kept)
+        if apart > floor:
+            raise AssertionError(f"batched {method}: images kept in place moved by {apart} "
+                                 f"uint8 levels when the others changed (floor {floor})")
+        rows[method] = {
+            "steps": FAMILY_STEPS, "warmup_edit_2_steps_s": t_warm, "edit_s_per_image": t_edit,
+            "phase_s": seconds, "launches": counts, "unet_calls": calls, "peak_mem_gib": peak,
+            "edit_panel_std": float(strip[:, 3 * size:].std()),
+            "batch": BATCH, "warmup_batch_2_steps_s": t_warm_batch, "batch_s": t_batch,
+            "batch_s_per_image": t_batch / BATCH,
+            "single_over_batched_per_image": t_edit * BATCH / t_batch,
+            "batch_launches": batch_counts, "batch_peak_mem_gib": batch_peak,
+            "uint8_diff_vs_single_editor": diffs,
+            "kept_images_run_to_run_max": floor, "kept_images_others_replaced_max": apart}
+        print("family", json.dumps({"method": method, **rows[method]}), flush=True)
+
+    short = _pipe_at(pipe, VARIANT_STEPS)
+    for method in FAMILY_SHORT_RUNS:
+        editor, _, _ = _family(short, method)
+        _reset_counts()
+        strip, t = _sync_time(lambda: editor(method, imgs[0], *prompts[0]))
+        counts = _counts()
+        _check_strip(strip)
+        calls = family_unet_calls(method, VARIANT_STEPS)
+        _check_launches(method, counts, 1, calls)
+        rows[method] = {"steps": VARIANT_STEPS, "edit_s": t, "launches": counts,
+                        "unet_calls": calls, "edit_panel_std": float(strip[:, 3 * size:].std())}
+        print("family", json.dumps({"method": method, **rows[method]}), flush=True)
+    return rows
+
+
+def masactrl_controls_phase(pipe) -> dict:
+    """One full-width SD1.4 UNet call at 4 rows ([uncond x 2, cond x 2] of
+    one image, the cake target) under each other MasaCtrl control at an
+    active step (4; sites from block 10): the union, the mask control with
+    two synthetic 64^2 disc masks, the auto-mask control (its masks from this
+    call's own 16^2 cross maps of one token). eps must be finite; B1 runs at
+    every flash site (the union's 6 sites at Sk = 2 Sq, the mask controls'
+    source rows at 2 rows); the target rows' eps moves from the uncontrolled
+    call's."""
+    from pnpinversion_tpu_torch.control.base import NO_CONTROL
+    from pnpinversion_tpu_torch.control.masactrl import (
+        MasaCtrlControl,
+        MasaCtrlMaskAutoControl,
+        MasaCtrlMaskControl,
+        MasaCtrlSpec,
+    )
+
+    dev, n = pipe.device, pipe.latent_size
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((4, n, n, 4), generator=gen, device=dev).to(pipe.dtype)
+    ctx = torch.cat([pipe.encode_prompt(["", ""]), pipe.encode_prompt(["", TAR])])
+    spec = MasaCtrlSpec()
+    yy, xx = np.mgrid[:n, :n] * (64 / n)
+
+    def disc(r, c, w):
+        return torch.as_tensor(((yy - r) ** 2 + (xx - c) ** 2 < w * w)[None].astype(np.float32),
+                               device=dev)
+
+    selector = torch.zeros((1, 77), device=dev)
+    selector[0, 2] = 1.0  # "square", the edited word of TAR (after the start token and "a")
+    runs = [("plain", NO_CONTROL, {}),
+            ("union", MasaCtrlControl(dataclasses.replace(spec, union=True)), {}),
+            ("mask", MasaCtrlMaskControl(spec), {"mask_s": disc(28, 30, 14),
+                                                 "mask_t": disc(36, 34, 18)}),
+            ("mask_auto", MasaCtrlMaskAutoControl(spec), {"ref_token_mask": selector,
+                                                          "cur_token_mask": selector})]
+    rows, plain = {}, None
+    for name, control, tensors in runs:
+        state = control.init_state(2, heads=8, device=dev, images=1)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with torch.inference_mode():
+            (eps, _), t = _sync_time(lambda: pipe.unet(x, 500, ctx, control, tensors, state, 4))
+        counts = _counts()
+        if eps.shape != x.shape or not torch.isfinite(eps).all():
+            raise AssertionError(f"MasaCtrl {name}: eps {tuple(eps.shape)} or not finite")
+        if counts["fwd"] != FLASH_SITES:
+            raise AssertionError(f"MasaCtrl {name}: {counts['fwd']} B1 launches, want "
+                                 f"{FLASH_SITES}")
+        if plain is None:
+            plain = eps.float()
+        moved = [((eps[r].float() - plain[r]).abs().max() / plain[r].abs().max()).item()
+                 for r in range(4)]
+        if name != "plain" and min(moved[1], moved[3]) == 0.0:
+            raise AssertionError(f"MasaCtrl {name} left the target rows as they were")
+        rows[name] = {"unet_call_s": t, "launches": counts["fwd"],
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "eps_rel_diff_vs_plain_by_row": moved}
+    print("masactrl_controls", json.dumps(rows), flush=True)
+    return rows
+
+
 F32_DI_STEPS = 50        # DDIM steps of the f32 directinversion+p2p edit
 F32_NULL_TEXT_STEPS = 3  # and of the f32 null-text edit (10 inner steps each)
 
@@ -1477,6 +1749,8 @@ def main() -> int:
     batched_variants = batched_variants_phase(pipe)
     early_stop = early_stop_phase(pipe)
     print("batched_null_text_early_stop", json.dumps(early_stop), flush=True)
+    families = families_phase(pipe)
+    masactrl_controls = masactrl_controls_phase(pipe)
     del pipe
     torch.cuda.empty_cache()
     f32_path = f32_path_phase()
@@ -1491,6 +1765,12 @@ def main() -> int:
                    f"batched directinversion+p2p x{BATCH}": batched["flash_launches_per_batch"],
                    NULL_TEXT: nt_launches["fwd"], "ddim+p2p": ddim["launches"]["fwd"]}
     bwd_by_path = {NULL_TEXT: nt_launches["main"]}
+    for method, row in families.items():
+        fwd_by_path[f"{row['steps']} steps: {method}"] = row["launches"]["fwd"]
+        if "batch_launches" in row:
+            fwd_by_path[f"batched {method} x{BATCH}"] = row["batch_launches"]["fwd"]
+    for name, row in masactrl_controls.items():
+        fwd_by_path[f"one UNet call, MasaCtrl {name}"] = row["launches"]
     for prefix, rows in ((f"{VARIANT_STEPS} steps: ", variants),
                          ("batched x2, 3 steps: ", batched_variants)):
         for method, row in rows.items():

@@ -91,6 +91,17 @@ class BaseControl:
         return hidden
 
 
+def lead_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x's rows in groups of ``rows`` (a UNet batch is image-major), each row
+    replaced by its group's first: the JAX package's ``broadcast_to(x[:1])``
+    of one image's rows, for every group at once. A copy with x's strides,
+    so heads split from (B, S, H*D) and channels-last activations keep their
+    layout."""
+    out = torch.empty_like(x)
+    out.view((-1, rows) + x.shape[1:]).copy_(x.view((-1, rows) + x.shape[1:])[:, :1])
+    return out
+
+
 class NoControl(BaseControl):
     pass
 

@@ -25,7 +25,7 @@ from pnpinversion_tpu_torch.control.base import AttnSite, BaseControl
 from pnpinversion_tpu_torch.ops.attention import apply_probs, attention_probs, fused_attention
 from pnpinversion_tpu_torch.utils import text as text_utils
 
-SELF_EDIT_MAX_SEQ = 32 * 32  # self-attention replace applies at <= 32^2 maps
+SELF_EDIT_MAX_SEQ = 32 * 32  # P2P's self-attention replace applies at <= 32^2 maps
 LB_START = 0.2  # LocalBlend starts after this fraction of the steps
 LB_THRESHOLD = 0.3  # LocalBlend keeps the edit where the normalised map exceeds this
 
@@ -45,6 +45,9 @@ class P2PSpec:
     num_lb_slots: int = 5
     lb_res: int = 16
     latent_size: int = 64
+    # self-attention replace applies at maps of at most this many pixels: 32^2
+    # for P2P, 16^2 for edit-friendly DDPM's copy of the controller
+    self_edit_max_seq: int = SELF_EDIT_MAX_SEQ
     # rows in the uncond half; -1 == batch_size (the reference's CFG batch).
     # The source-free fused scan drops the uncond-source row: batch_size - 1.
     uncond_rows: int = -1
@@ -85,7 +88,7 @@ class P2PControl(BaseControl):
         window, each image's edited rows are overwritten with its source
         row's probs @ v_row."""
         s = self.spec
-        if site.is_cross or site.seq_len > SELF_EDIT_MAX_SEQ:
+        if site.is_cross or site.seq_len > s.self_edit_max_seq:
             return None
         out = fused_attention(q, k, v, scale)
         if s.self_replace_start <= step < s.self_replace_end:
@@ -158,6 +161,7 @@ def make_p2p_control(
     num_lb_slots: int = 5,
     lb_res: int = 16,
     latent_size: int = 64,
+    self_edit_max_seq: int = SELF_EDIT_MAX_SEQ,
     device=None,
 ) -> Tuple[P2PControl, Dict[str, torch.Tensor]]:
     """Build (control, tensors) for one image's edit; tensors are f32
@@ -178,6 +182,7 @@ def make_p2p_control(
         num_lb_slots=num_lb_slots,
         lb_res=lb_res,
         latent_size=latent_size,
+        self_edit_max_seq=self_edit_max_seq,
     )
 
     def tensor(x, dtype=torch.float32):

@@ -41,6 +41,7 @@ from pnpinversion_tpu_torch.control.p2p import (
     make_p2p_control,
     stack_tensors,
 )
+from pnpinversion_tpu_torch.editors.base import Editor
 from pnpinversion_tpu_torch.inversion.ddim_inversion import (
     ddim_invert_loop,
     ddim_invert_loop_cfg,
@@ -49,15 +50,12 @@ from pnpinversion_tpu_torch.inversion.ddim_inversion import (
     null_latent_offsets,
     null_text_optimization,
 )
-from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image
-from pnpinversion_tpu_torch.pipeline import SDPipeline
 from pnpinversion_tpu_torch.sampling.p2p_forward import (
     fused_direct_inversion_edit_srcfree,
     guidance_forward,
     guidance_forward_single_branch,
     proximal_guidance_forward,
 )
-from pnpinversion_tpu_torch.utils.image import load_image, make_strip, txt_draw
 from pnpinversion_tpu_torch.utils.text import slerp_tensor
 
 GUIDANCE_GRID = {"0": 0.0, "1": 1.0, "25": 2.5, "5": 5.0, "75": 7.5}
@@ -101,10 +99,7 @@ def offset_rows_mask(offset_rows: str, noise_loss: torch.Tensor) -> tuple:
     return noise_loss, ones
 
 
-class P2PEditor:
-    def __init__(self, pipeline: SDPipeline):
-        self.pipe = pipeline
-
+class P2PEditor(Editor):
     def __call__(self, edit_method: str, image_path, prompt_src: str, prompt_tar: str,
                  guidance_scale: float = 7.5, proximal: Optional[str] = None,
                  quantile: float = 0.7, use_reconstruction_guidance: bool = False,
@@ -147,15 +142,6 @@ class P2PEditor:
         raise NotImplementedError(f"No edit method named {edit_method}")
 
     # ------------------------------------------------------------- phases
-    def encode_image(self, image: np.ndarray) -> torch.Tensor:
-        """uint8 (H, W, 3) -> scaled latent (1, h, w, 4)."""
-        img = torch.as_tensor(np.ascontiguousarray(image), device=self.pipe.device)
-        return image_to_latent(self.pipe.vae, img, dtype=self.pipe.dtype)
-
-    def decode_image(self, latents: torch.Tensor) -> np.ndarray:
-        """(B, h, w, 4) -> uint8 (B, H, W, 3) on the host."""
-        return latent_to_image(self.pipe.vae, latents).cpu().numpy()
-
     def embeds(self, prompts: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
         cond = self.pipe.encode_prompt(prompts)
         uncond = self.pipe.encode_prompt([""] * len(prompts))
@@ -235,17 +221,11 @@ class P2PEditor:
             guidance_scale, control, _image(tensors), image_enc=_image(image_enc),
             x_stars=_image(x_stars), **kw)[0]
 
-    def strip(self, prompt_src, prompt_tar, image_gt, recon, edit) -> np.ndarray:
-        size = self.pipe.config.image_size
-        instruct = txt_draw(f"source prompt: {prompt_src}\ntarget prompt: {prompt_tar}",
-                            target_size=(size, size))
-        return make_strip([instruct, image_gt, recon, edit])
-
     def _start(self, image_path, prompt_src, prompt_tar, grad: bool = False):
         """The ground-truth image, its latent (1, h, w, 4), the prompts and
         their cond and "" embeddings (2, 77, D); ``grad``: embeddings cloned
         out of inference mode, for the phases that differentiate."""
-        image_gt = load_image(image_path, self.pipe.config.image_size)
+        image_gt = self.load(image_path)
         prompts = [prompt_src, prompt_tar]
         cond, uncond = self.embeds(prompts)
         if grad:

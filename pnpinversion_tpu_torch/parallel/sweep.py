@@ -1,6 +1,7 @@
-"""Batched P2P-family editing: N images as one leading batch on one GPU (port
-of ``pnpinversion_tpu/parallel/sweep.py``'s ``BatchedDirectInversionP2P``,
-without its device mesh).
+"""Batched editing: N images as one leading batch on one GPU (port of
+``pnpinversion_tpu/parallel/sweep.py``'s ``BatchedDirectInversionP2P``,
+``BatchedMasaCtrl``, ``BatchedPnP`` and ``BatchedEditFriendly``, without
+their device mesh).
 
 Where the JAX package ``vmap``s a one-image pipeline over an image axis and
 shards it over a mesh, here the N images' UNet rows go through one UNet call
@@ -27,11 +28,19 @@ import numpy as np
 import torch
 
 from pnpinversion_tpu_torch.control.base import NO_CONTROL
+from pnpinversion_tpu_torch.control.masactrl import MasaCtrlControl, MasaCtrlSpec
 from pnpinversion_tpu_torch.control.p2p import P2PControl, P2PSpec
+from pnpinversion_tpu_torch.control.pnp import make_pnp_control
 from pnpinversion_tpu_torch.editors.p2p_editor import (
     GUIDANCE_GRID,
     direct_inversion_ablation,
     offset_rows_mask,
+)
+from pnpinversion_tpu_torch.editors.pnp_editor import METHODS as PNP_METHODS
+from pnpinversion_tpu_torch.editors.pnp_editor import (
+    NEGATIVE_PROMPT,
+    ddim_sample_trajectory,
+    pnp_sample_loop,
 )
 from pnpinversion_tpu_torch.inversion.ddim_inversion import (
     ddim_invert_loop,
@@ -41,6 +50,7 @@ from pnpinversion_tpu_torch.inversion.ddim_inversion import (
     null_latent_offsets,
     null_text_optimization,
 )
+from pnpinversion_tpu_torch.inversion.ef_ddpm import ef_forward_process, ef_reverse_process
 from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image
 from pnpinversion_tpu_torch.pipeline import SDPipeline
 from pnpinversion_tpu_torch.sampling.p2p_forward import (
@@ -50,6 +60,7 @@ from pnpinversion_tpu_torch.sampling.p2p_forward import (
     guidance_forward_single_branch,
     proximal_guidance_forward,
 )
+from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
 
 
 def group_items_by_spec(items: Sequence[dict],
@@ -66,6 +77,29 @@ def pad_batch(arrays: List[np.ndarray], multiple: int) -> Tuple[np.ndarray, int]
     n = len(arrays)
     padded = list(arrays) + [arrays[-1]] * ((-n) % multiple)
     return np.stack(padded), n
+
+
+def _cached_embed(obj, prompts) -> torch.Tensor:
+    """The embeddings of constant prompts ("" and so on), encoded once per
+    batched instance."""
+    key = tuple(prompts)
+    if key not in obj._cache:
+        obj._cache[key] = obj.pipe.encode_prompt(list(prompts))
+    return obj._cache[key]
+
+
+def _encode_images(pipe: SDPipeline, images_u8) -> torch.Tensor:
+    """uint8 (N, H, W, 3) -> latents (N, 1, h, w, 4)."""
+    images = torch.as_tensor(np.ascontiguousarray(images_u8), device=pipe.device)
+    return image_to_latent(pipe.vae, images, dtype=pipe.dtype)[:, None]
+
+
+def _decode_pair(pipe: SDPipeline, a: torch.Tensor, b: torch.Tensor):
+    """Latents a and b (N, h, w, 4) decoded in one VAE call: uint8 (N, H, W, 3)
+    each, on the host."""
+    n = a.shape[0]
+    both = latent_to_image(pipe.vae, torch.cat([a, b]).to(pipe.dtype)).cpu().numpy()
+    return both[:n], both[n:]
 
 
 NULL_TEXT = "null-text-inversion+p2p"
@@ -138,8 +172,7 @@ class BatchedDirectInversionP2P:
         if self.step_ablation_steps(method) is not None:
             method = "directinversion+p2p"
         pipe = self.pipe
-        images = torch.as_tensor(np.ascontiguousarray(images_u8), device=pipe.device)
-        N = images.shape[0]
+        N = len(images_u8)
         if uncond.dim() == 3:
             uncond = uncond[None].expand((N,) + uncond.shape)
         grad = method in (NULL_TEXT, SINGLE_BRANCH, NULL_LATENT,
@@ -147,11 +180,9 @@ class BatchedDirectInversionP2P:
         with torch.no_grad() if grad else torch.inference_mode():
             # clones: the loops that differentiate cannot take inference tensors
             cond, uncond = cond.to(pipe.device).clone(), uncond.to(pipe.device).clone()
-            latent = image_to_latent(pipe.vae, images, dtype=pipe.dtype)[:, None]
-            recon, edit = self._latents(spec, latent, cond, uncond, guidance_scale, tensors,
-                                        method)
-            both = latent_to_image(pipe.vae, torch.cat([recon[:, 0], edit[:, -1]])).cpu().numpy()
-        return both[:N], both[N:]
+            recon, edit = self._latents(spec, _encode_images(pipe, images_u8), cond, uncond,
+                                        guidance_scale, tensors, method)
+            return _decode_pair(pipe, recon[:, 0], edit[:, -1])
 
     def _latents(self, spec, latent, cond, uncond, g, tensors, method):
         """(recon (N, 1, h, w, 4), edit rows (N, 2, h, w, 4)) of a method;
@@ -218,3 +249,124 @@ class BatchedDirectInversionP2P:
         """Per-image per-step optimised uncond embeddings (N, T, 1, 77, D)."""
         return null_text_optimization(self.pipe.unet, self.pipe.schedule, traj, uncond[:, :1],
                                       cond[:, :1], g, num_inner_steps=self.num_inner_steps)
+
+
+class BatchedMasaCtrl:
+    """MasaCtrl (ddim+ and directinversion+) over a batch of images.
+
+    The per-image pipeline is the editor's (``editors/masactrl_editor.py``):
+    inversion with the empty prompt, then one 2-prompt sampling loop under
+    mutual self-attention control, with DirectInversion's offsets on the
+    source row (``use_offsets``) or without (ddim+: a zero row mask, the
+    plain CFG loop).
+    """
+
+    def __init__(self, pipe: SDPipeline, start_step: int = 4, start_layer: int = 10):
+        self.pipe = pipe
+        self.start_step = start_step
+        self.start_layer = start_layer
+        self._cache: Dict[Any, Any] = {}
+
+    @torch.inference_mode()
+    def edit_batch(self, use_offsets: bool, images_u8, cond: torch.Tensor,
+                   guidance_scale: float) -> Tuple[np.ndarray, np.ndarray]:
+        """images_u8 (N, H, W, 3) uint8; cond (N, 2, 77, D) = ["", target].
+        Returns (source row, target row) images, uint8 (N, H, W, 3) each."""
+        pipe = self.pipe
+        unet, sched = pipe.unet, pipe.schedule
+        latent = _encode_images(pipe, images_u8)
+        cond = cond.to(pipe.device)
+        N = cond.shape[0]
+        uncond = _cached_embed(self, ["", ""])[None].expand(N, -1, -1, -1)
+        traj = ddim_invert_loop(unet, sched, latent, cond[:, :1])
+        control = MasaCtrlControl(MasaCtrlSpec(start_step=self.start_step,
+                                               start_layer=self.start_layer))
+        row_mask = torch.tensor([1.0 if use_offsets else 0.0, 0.0], dtype=pipe.dtype,
+                                device=pipe.device)
+        lat = fused_direct_inversion_edit(unet, sched, traj, cond, uncond, guidance_scale,
+                                          control, {}, row_mask,
+                                          np.ones((sched.num_steps,), np.float32))
+        return _decode_pair(pipe, lat[:, 0], lat[:, 1])
+
+
+class BatchedPnP:
+    """Plug-and-Play (ddim+ and directinversion+) over a batch of images;
+    the per-image pipeline is the editor's (``editors/pnp_editor.py``), with
+    its ``steps_offset=1`` schedule."""
+
+    METHODS = PNP_METHODS
+
+    def __init__(self, pipe: SDPipeline, steps_offset: int = 1):
+        self.pipe = pipe
+        self.schedule = make_ddim_schedule(num_steps=pipe.schedule.num_steps,
+                                           steps_offset=steps_offset)
+        self._cache: Dict[Any, Any] = {}
+
+    @torch.inference_mode()
+    def edit_batch(self, method: str, images_u8, cond_src: torch.Tensor,
+                   cond_tar: torch.Tensor, guidance_scale: float) -> Tuple[np.ndarray, np.ndarray]:
+        """images_u8 (N, H, W, 3) uint8; cond_src/cond_tar (N, 1, 77, D).
+        Returns (recon, edit), uint8 (N, H, W, 3) each."""
+        if method not in self.METHODS:
+            raise NotImplementedError(f"{method!r} is not a batched PnP method")
+        pipe, sched = self.pipe, self.schedule
+        unet = pipe.unet
+        cond_src, cond_tar = cond_src.to(pipe.device), cond_tar.to(pipe.device)
+        N = cond_src.shape[0]
+        traj = ddim_invert_loop(unet, sched, _encode_images(pipe, images_u8), cond_src)
+        fixed = _cached_embed(self, ["", NEGATIVE_PROMPT])[None].expand(N, -1, -1, -1)
+        embeds = torch.cat([fixed, cond_tar], dim=1)
+        control = make_pnp_control(pipe.config.unet, sched.num_steps)
+        if method == "ddim+pnp":
+            src_traj = ddim_sample_trajectory(unet, sched, traj[:, -1], cond_src)
+            recon = src_traj[:, -1]
+            edited = pnp_sample_loop(unet, sched, control, src_traj, src_traj[:, 0], embeds,
+                                     guidance_scale)
+        else:  # directinversion+pnp
+            recon = traj[:, 1]
+            edited = pnp_sample_loop(unet, sched, control, traj.flip(1)[:, :-1], traj[:, -1],
+                                     embeds, guidance_scale)
+        return _decode_pair(pipe, recon[:, 0], edited[:, 0])
+
+
+class BatchedEditFriendly:
+    """edit-friendly-inversion+p2p over a batch of images; the per-image
+    pipeline is the editor's (``editors/ef_editor.py``). The images share
+    one noise draw from ``seed`` (as the JAX class gives them one key), so
+    each image is its single-image edit. Images whose P2P spec differs
+    (Replace when the word counts match, else Refine) run in different
+    batches: ``group_items_by_spec``."""
+
+    def __init__(self, pipe: SDPipeline, eta: float = 1.0, skip: int = 12,
+                 steps_offset: int = 1, seed: int = 1234):
+        self.pipe = pipe
+        self.schedule = make_ddim_schedule(num_steps=pipe.schedule.num_steps,
+                                           steps_offset=steps_offset)
+        self.eta = eta
+        self.skip = min(skip, self.schedule.num_steps - 1)
+        self.seed = seed
+        self._cache: Dict[Any, Any] = {}
+
+    @torch.inference_mode()
+    def edit_batch(self, spec: P2PSpec, images_u8, cond: torch.Tensor,
+                   source_guidance_scale: float = 1.0, target_guidance_scale: float = 7.5,
+                   tensors: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """images_u8 (N, H, W, 3) uint8; cond (N, 2, 77, D) = [source,
+        target]; tensors: each image's P2P tensors stacked on a leading N
+        axis. Returns (source row, target row) images, uint8 (N, H, W, 3)
+        each: the strip's reconstruction panel is the edit pass's source
+        row."""
+        pipe, sched = self.pipe, self.schedule
+        T, Z = sched.num_steps, sched.num_steps - self.skip
+        cond = cond.to(pipe.device)
+        N = cond.shape[0]
+        uncond = _cached_embed(self, ["", ""])[None].expand(N, -1, -1, -1)
+        gen = torch.Generator(device=pipe.device).manual_seed(self.seed)
+        zs, xts = ef_forward_process(pipe.unet, sched, _encode_images(pipe, images_u8),
+                                     cond[:, :1], uncond[:, :1], source_guidance_scale, gen,
+                                     eta=self.eta)
+        w = ef_reverse_process(pipe.unet, sched, xts[:, T - self.skip], zs[:, :Z], cond, uncond,
+                               [source_guidance_scale, target_guidance_scale], eta=self.eta,
+                               control=P2PControl(spec), tensors=tensors, num_zs=Z)
+        return _decode_pair(pipe, w[:, 0], w[:, 1])

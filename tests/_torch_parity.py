@@ -98,16 +98,36 @@ def assert_strips_match(got: np.ndarray, want: np.ndarray, size: int = 16) -> No
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
-def jax_torch_editors(seed: int, steps: int):
-    """(JAX editor, port editor) at TINY with the same numpy weights and
+def jax_torch_pipelines(seed: int, steps: int):
+    """(JAX pipeline, port pipeline) at TINY with the same numpy weights and
     word tokenizers."""
     from pnpinversion_tpu.configs import TINY
-    from pnpinversion_tpu.editors.p2p_editor import P2PEditor as JaxP2PEditor
     from pnpinversion_tpu.utils.tokenizer import SimpleWordTokenizer
-    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
     from pnpinversion_tpu_torch.utils.tokenizer import default_tokenizer
 
     params = pipeline_params(TINY, seed=seed)
     jpipe, tpipe = jax_pipeline(params, steps), torch_pipeline(params, steps)
     jpipe.tokenizer, tpipe.tokenizer = SimpleWordTokenizer(), default_tokenizer()
+    return jpipe, tpipe
+
+
+def jax_torch_editors(seed: int, steps: int):
+    """(JAX P2P editor, port P2P editor) on ``jax_torch_pipelines``."""
+    from pnpinversion_tpu.editors.p2p_editor import P2PEditor as JaxP2PEditor
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+
+    jpipe, tpipe = jax_torch_pipelines(seed, steps)
     return JaxP2PEditor(jpipe), P2PEditor(tpipe)
+
+
+def seeded_images(seed: int, n: int, size: int = 16) -> np.ndarray:
+    """n random uint8 (size, size, 3) images from a numpy seed."""
+    return (np.random.RandomState(seed).rand(n, size, size, 3) * 255).astype(np.uint8)
+
+
+def assert_panels_close(got: np.ndarray, want: np.ndarray, max_levels: int = 2) -> None:
+    """Panels of one image from the batched class and from the single-image
+    editor: f32 summation-order noise of another batch size, within the JAX
+    package's limit for its own batched path (tests/test_sharded_runner.py)."""
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= max_levels

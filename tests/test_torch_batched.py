@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import rel_err
+from _torch_parity import assert_panels_close, rel_err, seeded_images
 from pnpinversion_tpu.editors.p2p_editor import P2PEditor as JaxP2PEditor
 from pnpinversion_tpu.parallel.sweep import BatchedDirectInversionP2P as JaxBatched
 from pnpinversion_tpu_torch.configs import TINY
@@ -33,8 +33,6 @@ G = 7.5
 # LocalBlend and reweight, so one spec serves the batch
 PROMPTS = [("a cat on a mat", "a silver cat on a mat", "cat", "silver"),
            ("a dog on a rug", "a red dog on a rug", "dog", "red")]
-# the JAX package's limit for the same equivalence (tests/test_sharded_runner.py)
-MAX_LEVELS = 2
 # one image alone vs in a batch of two: f32 summation-order noise, which
 # Adam's update ~ lr * g / |g| turns into an embedding error of about lr times
 # the gradient's relative error (as test_torch_nulltext.py's LOOP_RTOL)
@@ -87,7 +85,7 @@ def test_batched_matches_single_editor(pipe, method):
     panels, within the JAX package's limit for its own batched path."""
     editor = P2PEditor(pipe)
     size = pipe.config.image_size
-    imgs = (np.random.RandomState(63).rand(2, size, size, 3) * 255).astype(np.uint8)
+    imgs = seeded_images(63, 2, size)
     want = [_single(editor, method, imgs[i], i)[:, 2 * size:] for i in range(2)]
 
     specs, tensors, conds = [], [], []
@@ -107,8 +105,7 @@ def test_batched_matches_single_editor(pipe, method):
         specs[0], imgs, cond, uncond, g, stack_tensors(tensors), method=method)
     assert recon.shape == edit.shape == (2, size, size, 3) and edit.dtype == np.uint8
     for i in range(2):
-        got = np.concatenate([recon[i], edit[i]], axis=1)
-        assert np.abs(got.astype(int) - want[i].astype(int)).max() <= MAX_LEVELS, (method, i)
+        assert_panels_close(np.concatenate([recon[i], edit[i]], axis=1), want[i])
 
 
 def test_batched_rejects_unsupported(pipe):

@@ -54,6 +54,53 @@ def test_kernel_matches_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sq,d", [(4096, 40), (1024, 80)])
+def test_kernel_union_shapes_on_cuda(cuda_device, sq, d):
+    """MasaCtrl's union at 4 rows: Sk = 2 Sq (each row's half-source K/V and
+    its own, concatenated), q heads split from (B, S, H*D), k/v contiguous."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q = (torch.randn((4, sq, 8 * d), generator=gen, device=cuda_device).to(torch.bfloat16)
+         .view(4, sq, 8, d).transpose(1, 2))
+    k, v = (torch.randn((4, 8, 2 * sq, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = tflash.flash_attention_fwd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    want, lse_want = tflash.flash_attention_reference(q, k, v, d ** -0.5)
+    assert (out.float() - want.float()).abs().max().item() <= 1e-2
+    assert ((lse - lse_want).abs() / lse_want.abs()).max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_batched_masactrl_unet_call_on_cuda(cuda_device):
+    """One SD1.4 UNet call on the card at 2 images x 4 rows under MasaCtrl at
+    an active step: each image's source rows (0 and 2 of its 4) come out as
+    the uncontrolled call's, bit for bit (the control gives a source row its
+    own K/V and the rows do not mix), its target rows move, and B1 runs at
+    every flash site."""
+    from pnpinversion_tpu_torch.configs import SD14
+    from pnpinversion_tpu_torch.control.base import NO_CONTROL
+    from pnpinversion_tpu_torch.control.masactrl import MasaCtrlControl, MasaCtrlSpec
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+    pipe = SDPipeline.create(SD14, device="cuda")
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((8, 64, 64, 4), generator=gen, device=cuda_device).to(pipe.dtype)
+    ctx = torch.cat([pipe.encode_prompt(["", "", "", "a cat"]),
+                     pipe.encode_prompt(["", "", "", "a dog"])])
+    eps = {}
+    for name, control in (("plain", NO_CONTROL), ("masactrl", MasaCtrlControl(MasaCtrlSpec()))):
+        before = tflash.flash_attention_fwd.launches
+        with torch.inference_mode():
+            eps[name], _ = pipe.unet(x, 500, ctx, control, {}, {}, 4)
+        torch.cuda.synchronize()
+        assert tflash.flash_attention_fwd.launches - before == 10
+        assert torch.isfinite(eps[name]).all()
+    src, tgt = [0, 2, 4, 6], [1, 3, 5, 7]
+    assert torch.equal(eps["masactrl"][src], eps["plain"][src])
+    assert all(not torch.equal(eps["masactrl"][r], eps["plain"][r]) for r in tgt)
+
+
+@pytest.mark.cuda
 def test_kernel_takes_expanded_inputs_on_cuda(cuda_device):
     """K/V broadcast over the batch (stride 0), which a TMA tensor map cannot
     describe: the wrapper copies them and the result matches."""
