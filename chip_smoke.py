@@ -41,13 +41,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    batched classes on 4 images at 50 steps, each image against the
    single-image editor, images kept in place unmoved when the others
    change, ``ddim+masactrl`` and ``ddim+pnp`` at 5 steps, and one UNet call
-   under each other MasaCtrl control (union, masks, auto masks);
+   under each other MasaCtrl control (union, masks, auto masks); EF's UNet
+   computes in f32 (the bf16 pipeline's layers cast their weights to its
+   f32 latents), so its runs launch only the f32 forward; then EDICT, in
+   f32 the same way: the cost of that per-call cast against an f32 copy of
+   the UNet, one counted ``edict+p2p`` edit at 50 steps with the float64
+   carry (timed per pass), the f32 attention's share of an edit from a
+   device trace (5 steps), ``edict+direct_forward`` at 5 with the f32
+   carry, ``BatchedEDICT`` on 4 images at 3 for both methods (each image
+   within 2 uint8 levels of the editor's), and the strength-1.0 round trip
+   in both precisions, which fails unless the float64 carry's MSE is below
+   the f32 one's by 10x;
 8. the f32 pipeline (``SDPipeline.create(..., dtype=torch.float32)``, full
    f32): one counted directinversion+p2p edit and one counted
    null-text-inversion+p2p edit, which launch only the f32 kernels, and one
-   UNet call with TF32 on against full f32; every shape that these paths
-   launched a kernel at, in either dtype, must be one that phase 3 held
-   against the plain version;
+   UNet call with TF32 on against full f32; then InstructPix2Pix and
+   InstructDiffusion on an IP2P pipeline (the 8-channel UNet, bf16, its UNet
+   in f32): one counted edit each at 50 steps and ``BatchedInstruct`` on 4
+   images at 50 (each edit within 2 uint8 levels of the editor's); every
+   shape that these paths launched a kernel at, in either dtype, must be
+   one that phase 3 held against the plain version;
 9. the PIE-Bench evaluator at full width (CLIP ViT-L/14, DINO ViT-B/8,
    SqueezeNet LPIPS, random weights, f32) over the batched path's strips,
    written in the runners' layout with a synthetic mapping file: the CSV's
@@ -60,7 +73,9 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -118,12 +133,15 @@ FLASH_CASES = [
     ("union_64x64", 4, 8, 4096, 8192, 40, "q", True),
     ("union_32x32", 4, 8, 1024, 2048, 80, "q", True),
 ] + EDGE_CASES
-# the f32 pipeline (SDPipeline.create(..., dtype=torch.float32)) on one
-# image: 1 row in inversion and null-text's inner loop, 3 in the
-# DirectInversion scan, 2 and 4 in null-text+p2p's reconstruction and edit
+# the f32 paths: the f32 pipeline (SDPipeline.create(..., dtype=torch.float32))
+# on one image, 1 row in inversion and null-text's inner loop, 3 in the
+# DirectInversion scan, 2 and 4 in null-text+p2p's reconstruction and edit;
+# the f32 families of a bf16 pipeline (its f32 UNet): EDICT 2 rows and 3 under
+# its takeover, EF 2 and 4, the instruction editors 3; at 4 images through
+# the batched classes 8, 12 and 16 rows (B.H 64, 96, 128)
 F32_FLASH_CASES = [
     (f"f32_rows{b}_{size}", b, 8, s, s, d, True, True)
-    for b in (1, 2, 3, 4) for size, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80))
+    for b in (1, 2, 3, 4, 8, 12, 16) for size, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80))
 ] + EDGE_CASES
 # (..., dtype): every case names the kernel family it checks
 FLASH_CASES = ([c + ("bf16",) for c in FLASH_CASES]
@@ -644,7 +662,8 @@ def _record_path_shapes() -> None:
     for key, name, dtype in (("fwd", "_launch_fwd", "bf16"), ("bwd", "_launch_bwd_main", "bf16"),
                              ("fwd", "_launch_fwd_f32", "f32"), ("bwd", "_launch_bwd_f32", "f32")):
         def logged(q, k, *args, _launch=getattr(fa, name), _key=key, _dtype=dtype):
-            PATH_SHAPES[_key].add((_dtype, *q.shape[:3], k.shape[2], q.shape[3]))
+            shape = (_dtype, *q.shape[:3], k.shape[2], q.shape[3])
+            PATH_SHAPES[_key].add(shape)
             return _launch(q, k, *args)
 
         setattr(fa, name, logged)
@@ -847,6 +866,18 @@ def _check_launches(name: str, counts: dict, calls_per_step: int, steps: int,
                              f"({calls_per_step} x {steps} + K) forward and {BWD_SITES} x K of "
                              f"each backward kernel, K = {k_range} per step")
     return inner
+
+
+def _check_f32_launches(name: str, calls: int) -> dict:
+    """Check an f32 path's launches since ``_reset_counts`` against the
+    code's own count: the f32 forward once per flash site per UNet call, no
+    backward, and no bf16 kernel. Returns the f32 counts."""
+    counts, bf16 = _f32_counts(), _counts()
+    want = {"fwd": FLASH_SITES * calls, "dq": 0, "dkv": 0}
+    if counts != want or any(bf16.values()):
+        raise AssertionError(f"{name}: f32 launches {counts} (bf16 kernels {bf16}), want "
+                             f"{want} and no bf16 kernel ({calls} UNet calls)")
+    return counts
 
 
 def variants_phase(pipe, steps: int = VARIANT_STEPS) -> dict:
@@ -1145,6 +1176,9 @@ def early_stop_phase(pipe, steps: int = 3) -> dict:
 
 
 FAMILY_RUNS = ("directinversion+masactrl", "directinversion+pnp", "edit-friendly-inversion+p2p")
+# families whose UNet computes in f32 on a bf16 pipeline (its layers cast the
+# weights to the f32 latents), as the JAX package's layers do
+F32_FAMILIES = ("edit-friendly-inversion+p2p",)
 FAMILY_STEPS = 50  # DDIM steps of the families' counted edits and batches
 FAMILY_SHORT_RUNS = ("ddim+masactrl", "ddim+pnp")  # counted at VARIANT_STEPS
 EF_SKIP = 12  # the EF editor's default: T forward and T - 12 reverse UNet calls
@@ -1207,6 +1241,7 @@ def _timed_calls(targets, seconds: dict):
     a synchronize into ``seconds[attribute]`` (summed); returns a function
     that puts the originals back."""
     saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+    own = [name in vars(owner) for owner, name in targets]
     for owner, name, fn in saved:
         def run(*args, _fn=fn, _name=name, **kwargs):
             out, dt = _sync_time(lambda: _fn(*args, **kwargs))
@@ -1215,8 +1250,13 @@ def _timed_calls(targets, seconds: dict):
         setattr(owner, name, run)
 
     def restore():
-        for owner, name, fn in saved:
-            setattr(owner, name, fn)
+        # a method is deleted from the instance again (keeping its bound
+        # method there would tie the instance, and its pipeline, in a cycle)
+        for (owner, name, fn), in_dict in zip(saved, own):
+            if in_dict:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
     return restore
 
 
@@ -1266,17 +1306,24 @@ def families_phase(pipe) -> dict:
             strip, t_edit = _sync_time(lambda: editor(method, imgs[0], *prompts[0]))
         finally:
             restore()
+        f32 = method in F32_FAMILIES
         counts, peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
         _check_strip(strip)
         calls = family_unet_calls(method, FAMILY_STEPS)
-        _check_launches(method, counts, 1, calls)
+        if f32:
+            counts = _check_f32_launches(method, calls)
+        else:
+            _check_launches(method, counts, 1, calls)
 
         _, t_warm_batch = _sync_time(lambda: warm_batch(imgs, prompts))
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         (recon, edits), t_batch = _sync_time(lambda: batch(imgs, prompts))
         batch_counts, batch_peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
-        _check_launches(f"batched {method}", batch_counts, 1, calls)
+        if f32:
+            batch_counts = _check_f32_launches(f"batched {method}", calls)
+        else:
+            _check_launches(f"batched {method}", batch_counts, 1, calls)
         for name, x in (("recon", recon), ("edit", edits)):
             if x.shape != (BATCH, size, size, 3) or x.dtype != np.uint8:
                 raise AssertionError(f"batched {method} {name} {x.shape} {x.dtype}")
@@ -1301,6 +1348,11 @@ def families_phase(pipe) -> dict:
                 _diff(st[:, 2 * size:3 * size], t) for st, t in zip(singles, trip)]
             diffs["batched_recon_vs_vae_round_trip_max_mean"] = [
                 _diff(r, t) for r, t in zip(recon, trip)]
+            # the same round trip decoded in f32, as EF's own decode is
+            with torch.inference_mode():
+                trip32 = [editor.decode_image(editor.encode_image(im).float())[0] for im in imgs]
+            diffs["single_recon_vs_f32_decoded_round_trip_max_mean"] = [
+                _diff(st[:, 2 * size:3 * size], t) for st, t in zip(singles, trip32)]
 
         _, _, short_batch = _family(_pipe_at(pipe, INDEPENDENCE_STEPS), method)
         first = short_batch(imgs, prompts)
@@ -1313,6 +1365,7 @@ def families_phase(pipe) -> dict:
             raise AssertionError(f"batched {method}: images kept in place moved by {apart} "
                                  f"uint8 levels when the others changed (floor {floor})")
         rows[method] = {
+            "kernel": "f32" if f32 else "bf16",
             "steps": FAMILY_STEPS, "warmup_edit_2_steps_s": t_warm, "edit_s_per_image": t_edit,
             "phase_s": seconds, "launches": counts, "unet_calls": calls, "peak_mem_gib": peak,
             "edit_panel_std": float(strip[:, 3 * size:].std()),
@@ -1333,7 +1386,7 @@ def families_phase(pipe) -> dict:
         _check_strip(strip)
         calls = family_unet_calls(method, VARIANT_STEPS)
         _check_launches(method, counts, 1, calls)
-        rows[method] = {"steps": VARIANT_STEPS, "edit_s": t, "launches": counts,
+        rows[method] = {"kernel": "bf16", "steps": VARIANT_STEPS, "edit_s": t, "launches": counts,
                         "unet_calls": calls, "edit_panel_std": float(strip[:, 3 * size:].std())}
         print("family", json.dumps({"method": method, **rows[method]}), flush=True)
     return rows
@@ -1399,6 +1452,339 @@ def masactrl_controls_phase(pipe) -> dict:
                       "eps_rel_diff_vs_plain_by_row": moved}
     print("masactrl_controls", json.dumps(rows), flush=True)
     return rows
+
+
+EDICT_STEPS = 50  # DDIM steps of the counted edict+p2p edit (float64 carry)
+EDICT_SHORT_STEPS = 5  # of edict+direct_forward (f32 carry)
+EDICT_BATCH_STEPS = 3  # of BatchedEDICT x4, both methods (float64 carry)
+EDICT_ROUND_TRIP_STEPS = 10  # of the strength-1.0 round trips in both precisions
+EDICT_WARMUP_STEPS = 3
+EDICT_TRACE_STEPS = 5  # of the edict+p2p edit traced for the f32 attention's share
+F32_PANEL_TOL = 2  # uint8 levels: an f32 path's batched panels against the editor's
+
+
+def edict_unet_calls(steps: int, strength: float = 0.8) -> int:
+    """UNet calls of one EDICT edit, as the code makes them (a batch makes as
+    many, each over every image's rows): two per step (one per latent of the
+    pair) in each of the reconstruction's passes (all steps) and the edit's
+    (the last int(steps * strength))."""
+    return 2 * (2 * steps + 2 * int(steps * strength))
+
+
+def _edict_inputs(pipe, seed: int):
+    """BATCH random images with a cake prompt pair each: (images, pairs,
+    cond_src (N, 1, 77, D), cond_tar, the takeover tensors stacked)."""
+    from pnpinversion_tpu_torch.control.edict_p2p import make_edict_p2p_tensors
+    from pnpinversion_tpu_torch.control.p2p import stack_tensors
+
+    image = _random_images(seed, pipe.config.image_size)
+    imgs = np.stack([image() for _ in range(BATCH)])
+    pairs = CAKE_PROMPTS[:BATCH]
+    src, tar = (torch.stack([pipe.encode_prompt([p[i]]) for p in pairs]) for i in (0, 1))
+    tensors = stack_tensors([make_edict_p2p_tensors(*p, pipe.tokenizer, device=pipe.device)
+                             for p in pairs])
+    return imgs, pairs, src, tar, tensors
+
+
+def edict_round_trip(pipe, image: np.ndarray, steps: int = EDICT_ROUND_TRIP_STEPS) -> dict:
+    """``coupled_scan`` inverts an image's latent pair at strength 1.0
+    (guidance 3, the source prompt) and regenerates it, in both precisions,
+    at full width: the float64 carry's MSE against the pair must be below
+    the f32 carry's by at least 10x (the JAX package's own criterion). It
+    holds only if a UNet call gives the same bits for the same input, so one
+    call is also made twice and compared."""
+    from pnpinversion_tpu_torch.editors.edict_editor import EDICTEditor, coupled_scan
+
+    editor = EDICTEditor(_pipe_at(pipe, steps))
+    unet = pipe.unet
+    with torch.inference_mode():
+        latent = editor.encode_image(image, dtype=torch.float32)
+        pair = torch.stack([latent, latent], dim=1)
+        ctx = torch.cat([pipe.encode_prompt([""]), pipe.encode_prompt([SRC])])[None]
+        x = latent.expand(2, -1, -1, -1)
+        first, _ = unet(x, 500, ctx[0])
+        again, _ = unet(x, 500, ctx[0])
+        out = {"steps": steps, "unet_call_bit_identical_run_to_run": torch.equal(first, again),
+               "unet_call_run_to_run_max_abs": (first - again).abs().max().item()}
+        for precision in ("f32", "df64"):
+            inv, t_inv = _sync_time(lambda: coupled_scan(unet, editor.schedule, pair, ctx, 3.0, 0,
+                                                         True, precision=precision))
+            rec, t_rec = _sync_time(lambda: coupled_scan(unet, editor.schedule, inv, ctx, 3.0, 0,
+                                                         False, precision=precision))
+            out[precision] = {"mse": ((rec.double() - pair.double()) ** 2).mean().item(),
+                              "max_abs": (rec.double() - pair.double()).abs().max().item(),
+                              "inversion_moved_max_abs": (inv.double() - pair.double()).abs()
+                              .max().item(), "invert_s": t_inv, "regenerate_s": t_rec}
+    if not out["df64"]["mse"] < out["f32"]["mse"] / 10:
+        raise AssertionError(f"EDICT's float64 round trip does not beat the f32 one by 10x: "
+                             f"{out}")
+    return out
+
+
+def _device_trace(fn) -> tuple:
+    """Runs ``fn`` once under torch.profiler (device activity only) and
+    returns (its wall seconds under the profiler, device microseconds by
+    kernel name, kernel launches by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _sync_time(fn)
+    us, n = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] += e.time_range.elapsed_us()
+            n[e.name] += 1
+    if not us:
+        raise AssertionError("torch.profiler recorded no device kernel")
+    return wall, us, n
+
+
+def edict_trace(pipe, image: np.ndarray, pair) -> dict:
+    """One ``edict+p2p`` edit (float64 carry) at ``EDICT_TRACE_STEPS`` under
+    torch.profiler: the f32 forward's (``flash_fwd_f32_kernel``) device
+    seconds and launches in the trace, their share of the same edit's wall
+    time run without the profiler, and their share of the sum of every
+    kernel's traced time (that sum exceeded the wall time on the H100: it
+    is no busy time, and no idle share is derived from it). The edit makes
+    its UNet calls in the 50-step edit's proportions (2 per step of each
+    pass, the edit's passes over the last 80% of the steps); its VAE and
+    text encoder weigh ten times more than at 50 steps."""
+    from pnpinversion_tpu_torch.editors.edict_editor import EDICTEditor
+
+    editor = EDICTEditor(_pipe_at(pipe, EDICT_TRACE_STEPS), "df64")
+    _, t_plain = _sync_time(lambda: editor("edict+p2p", image, *pair))
+    wall, us, n = _device_trace(lambda: editor("edict+p2p", image, *pair))
+    kernel_sum = sum(us.values()) / 1e6
+    attn = sum(v for k, v in us.items() if "flash_fwd_f32" in k) / 1e6
+    launches = sum(v for k, v in n.items() if "flash_fwd_f32" in k)
+    calls = edict_unet_calls(EDICT_TRACE_STEPS)
+    if launches != FLASH_SITES * calls:
+        raise AssertionError(f"the traced edict+p2p edit launched the f32 forward {launches} "
+                             f"times, expected {FLASH_SITES * calls}")
+    return {"steps": EDICT_TRACE_STEPS, "unet_calls": calls, "edit_s": t_plain,
+            "traced_edit_s": wall, "kernel_time_sum_s": kernel_sum,
+            "f32_attention_device_s": attn, "f32_attention_launches": launches,
+            "f32_attention_ms_per_launch": attn * 1e3 / launches,
+            "f32_attention_share_of_edit": attn / t_plain,
+            "f32_attention_share_of_kernel_time_sum": attn / kernel_sum,
+            "top": [{"kernel": k[:90], "s": v / 1e6} for k, v in us.most_common(8)]}
+
+
+def f32_cast_cost(pipe) -> dict:
+    """What computing in f32 on the bf16 pipeline's own UNet costs (its
+    Linear and Conv2d layers cast their bf16 weights to f32 at every call)
+    against an f32 copy of the UNet made here (weights cast once): one UNet
+    call at 2 and at 3 rows, timed in turns to a synchronize (host clock,
+    median of 7; a UNet call waits for the device when it copies its
+    timestep to it, so CUDA events behind a spin cannot time it), and the
+    largest difference between the two outputs."""
+    import copy
+
+    copy32 = copy.deepcopy(pipe.unet).to(torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {}
+    with torch.inference_mode():
+        ctx = torch.cat([pipe.encode_prompt([""]), pipe.encode_prompt([SRC]),
+                         pipe.encode_prompt([TAR])])
+        for rows in (2, 3):
+            x = torch.randn((rows, 64, 64, 4), generator=gen, device="cuda")
+            c = ctx[:rows]
+            runs = {"cast": lambda: pipe.unet(x, 500, c)[0], "copy": lambda: copy32(x, 500, c)[0]}
+            eps = {name: fn() for name, fn in runs.items()}
+            ms = collections.defaultdict(list)
+            for _ in range(7):
+                for name, fn in runs.items():
+                    ms[name].append(_sync_time(fn)[1] * 1e3)
+            row = {f"{name}_ms": statistics.median(v) for name, v in ms.items()}
+            row.update({f"{name}_spread_ms": max(v) - min(v) for name, v in ms.items()})
+            out[f"rows_{rows}"] = {**row, "cast_over_copy": row["cast_ms"] / row["copy_ms"],
+                                   "max_abs_diff": (eps["cast"] - eps["copy"]).abs().max().item()}
+    del copy32
+    torch.cuda.empty_cache()
+    return out
+
+
+def edict_phase(pipe) -> dict:
+    """EDICT on the bf16 SD1.4 pipeline, its UNet and VAE computing in f32:
+
+    - ``f32_cast_cost``: the per-call cast of the weights against an f32 copy;
+    - one counted ``edict+p2p`` edit at ``EDICT_STEPS`` with the float64 carry
+      (after a warm-up edit at ``EDICT_WARMUP_STEPS``), each coupled pass and
+      the codec timed to a synchronize, peak memory, and the f32 forward's
+      launches against the code's count;
+    - ``edict_trace``: the f32 attention's share of an edit, from a device
+      trace;
+    - one counted ``edict+direct_forward`` edit at ``EDICT_SHORT_STEPS`` with
+      the f32 carry;
+    - ``BatchedEDICT`` on 4 images (a cake prompt pair each), float64, both
+      methods at ``EDICT_BATCH_STEPS`` (not warmed at that length), launches
+      counted, each image against the single-image editor, and each
+      reconstruction panel (a float64 round trip) against the image's f32
+      VAE round trip, as uint8 differences, each within ``F32_PANEL_TOL``;
+    - ``edict_round_trip``: the float64 round trip against the f32 one."""
+    from pnpinversion_tpu_torch.editors import edict_editor
+    from pnpinversion_tpu_torch.parallel.sweep import BatchedEDICT
+
+    size = pipe.config.image_size
+    out = {"f32_cast_cost": f32_cast_cost(pipe)}
+    print("edict_f32_cast_cost", json.dumps(out["f32_cast_cost"]), flush=True)
+    imgs, pairs, src, tar, tensors = _edict_inputs(pipe, 31)
+    warm = edict_editor.EDICTEditor(_pipe_at(pipe, EDICT_WARMUP_STEPS), "df64")
+    _, t_warm = _sync_time(lambda: warm("edict+p2p", imgs[0], *pairs[0]))
+
+    editor = edict_editor.EDICTEditor(_pipe_at(pipe, EDICT_STEPS), "df64")
+    passes, seconds = [], {}
+    scan = edict_editor.coupled_scan
+
+    def timed_scan(unet, schedule, pair, context, g, t_limit, reverse, *args, **kwargs):
+        out, dt = _sync_time(lambda: scan(unet, schedule, pair, context, g, t_limit, reverse,
+                                          *args, **kwargs))
+        passes.append({"t_limit": t_limit, "reverse": reverse,
+                       "rows": 3 if kwargs.get("edit_context") is not None else 2, "s": dt})
+        return out
+
+    restore = _timed_calls([(editor, "encode_image"), (editor, "decode_image")], seconds)
+    edict_editor.coupled_scan = timed_scan
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    try:
+        strip, t_edit = _sync_time(lambda: editor("edict+p2p", imgs[0], *pairs[0]))
+    finally:
+        edict_editor.coupled_scan = scan
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    calls = edict_unet_calls(EDICT_STEPS)
+    counts = _check_f32_launches("edict+p2p", calls)
+    _check_strip(strip)
+    out["edict+p2p"] = {
+        "precision": "df64", "steps": EDICT_STEPS, "warmup_edit_s": t_warm,
+        "edit_s_per_image": t_edit, "passes": passes, "codec_s": seconds, "peak_mem_gib": peak,
+        "launches": counts, "unet_calls": calls,
+        "edit_panel_std": float(strip[:, 3 * size:].std())}
+    print("edict", json.dumps(out["edict+p2p"]), flush=True)
+    out["trace"] = edict_trace(pipe, imgs[0], pairs[0])
+    print("edict_trace", json.dumps(out["trace"]), flush=True)
+
+    short = edict_editor.EDICTEditor(_pipe_at(pipe, EDICT_SHORT_STEPS), "f32")
+    _reset_counts()
+    strip, t = _sync_time(lambda: short("edict+direct_forward", imgs[0], *pairs[0]))
+    calls = edict_unet_calls(EDICT_SHORT_STEPS)
+    _check_strip(strip)
+    out["edict+direct_forward"] = {
+        "precision": "f32", "steps": EDICT_SHORT_STEPS, "edit_s": t, "unet_calls": calls,
+        "launches": _check_f32_launches("edict+direct_forward", calls),
+        "edit_panel_std": float(strip[:, 3 * size:].std())}
+    print("edict", json.dumps({"method": "edict+direct_forward",
+                               **out["edict+direct_forward"]}), flush=True)
+
+    bpipe = _pipe_at(pipe, EDICT_BATCH_STEPS)
+    single = edict_editor.EDICTEditor(bpipe, "df64")
+    with torch.inference_mode():
+        trip = [single.decode_image(single.encode_image(im, dtype=torch.float32))[0]
+                for im in imgs]
+    calls = edict_unet_calls(EDICT_BATCH_STEPS)
+    for method in edict_editor.METHODS:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        (recon, edits), t_batch = _sync_time(lambda: BatchedEDICT(bpipe, "df64").edit_batch(
+            method, imgs, src, tar, tensors))
+        counts = _check_f32_launches(f"batched {method}", calls)
+        row = {"precision": "df64", "steps": EDICT_BATCH_STEPS, "batch": BATCH,
+               "batch_s": t_batch, "batch_s_per_image": t_batch / BATCH,
+               "batch_launches": counts, "unet_calls": calls,
+               "batch_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        diffs = collections.defaultdict(list)
+        for i in range(BATCH):
+            strip = single(method, imgs[i], *pairs[i])
+            _check_strip(strip)
+            for name, got, col in (("recon", recon[i], 2), ("edit", edits[i], 3)):
+                diffs[f"{name}_vs_single_max_mean"].append(
+                    _diff(got, strip[:, col * size:(col + 1) * size]))
+            diffs["batched_recon_vs_f32_vae_round_trip_max_mean"].append(_diff(recon[i], trip[i]))
+            diffs["single_recon_vs_f32_vae_round_trip_max_mean"].append(
+                _diff(strip[:, 2 * size:3 * size], trip[i]))
+        row["uint8_diff"] = dict(diffs)
+        out[f"batched {method}"] = row
+        print("edict", json.dumps({"method": f"batched {method}", **row}), flush=True)
+        far = {k: v for k, v in diffs.items() if max(m for m, _ in v) > F32_PANEL_TOL}
+        if far:
+            raise AssertionError(f"batched {method}: panels more than {F32_PANEL_TOL} uint8 "
+                                 f"levels from the editor's or the f32 VAE round trip: {far}")
+
+    out["round_trip"] = edict_round_trip(pipe, imgs[0])
+    print("edict_round_trip", json.dumps(out["round_trip"]), flush=True)
+    return out
+
+
+INSTRUCT_STEPS = 50  # sampling steps of the counted instruction edits and the batch
+INSTRUCTIONS = ("make the cake square", "turn the plate into glass", "put candles on the cake",
+                "make it a chocolate cake")
+
+
+def instruct_phase() -> dict:
+    """InstructPix2Pix and InstructDiffusion on an IP2P pipeline (SD1.4 with
+    the 8-channel UNet, random weights from seed 0, bf16; the UNet and the
+    decode compute in f32, as the f32 sigmas make the layers compute in
+    both packages): one counted edit of each method at
+    ``INSTRUCT_STEPS`` after a warm-up at 2, and ``BatchedInstruct`` on 4
+    images (an instruction each) at ``INSTRUCT_STEPS`` after a warm-up batch
+    at 2: seconds per image, launches, peak memory, each image within
+    ``F32_PANEL_TOL`` of the single-image editor's."""
+    from pnpinversion_tpu_torch.configs import IP2P
+    from pnpinversion_tpu_torch.editors.instruct_editor import VARIANTS, InstructEditor
+    from pnpinversion_tpu_torch.parallel.sweep import BatchedInstruct
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+    pipe, t_create = _sync_time(lambda: SDPipeline.create(IP2P, seed=0,
+                                                          num_ddim_steps=INSTRUCT_STEPS))
+    if pipe.dtype != torch.bfloat16 or pipe.unet.conv_in.weight.shape[1] != 8:
+        raise AssertionError(f"an IP2P pipeline: bf16, 8 UNet input channels, got {pipe.dtype}, "
+                             f"{pipe.unet.conv_in.weight.shape[1]}")
+    size = pipe.config.image_size
+    image = _random_images(919, size)
+    imgs = np.stack([image() for _ in range(BATCH)])
+    editor = InstructEditor(pipe)
+    out = {"create_s": t_create}
+    for method in VARIANTS:
+        _, t_warm = _sync_time(lambda: editor(method, imgs[0], INSTRUCTIONS[0], steps=2))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        strip, t = _sync_time(lambda: editor(method, imgs[0], INSTRUCTIONS[0],
+                                             steps=INSTRUCT_STEPS))
+        counts = _check_f32_launches(method, INSTRUCT_STEPS)
+        _check_strip(strip)
+        if strip[:, 3 * size:].std() == 0.0:
+            raise AssertionError(f"{method}: the edit panel is constant")
+        out[method] = {"steps": INSTRUCT_STEPS, "warmup_edit_2_steps_s": t_warm, "edit_s": t,
+                       "launches": counts, "unet_calls": INSTRUCT_STEPS,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "edit_panel_std": float(strip[:, 3 * size:].std()), "strip": strip}
+    method = "instruct-pix2pix"
+    text = torch.stack([pipe.encode_prompt([s]) for s in INSTRUCTIONS[:BATCH]])
+    _, t_warm = _sync_time(lambda: BatchedInstruct(pipe, steps=2).edit_batch(method, imgs, text))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    edits, t_batch = _sync_time(lambda: BatchedInstruct(pipe).edit_batch(method, imgs, text))
+    counts = _check_f32_launches(f"batched {method}", INSTRUCT_STEPS)
+    if edits.shape != (BATCH, size, size, 3) or edits.dtype != np.uint8:
+        raise AssertionError(f"batched {method}: {edits.shape} {edits.dtype}")
+    singles = [out[method]["strip"]] + [editor(method, imgs[i], INSTRUCTIONS[i],
+                                               steps=INSTRUCT_STEPS) for i in range(1, BATCH)]
+    out[f"batched {method}"] = {
+        "steps": INSTRUCT_STEPS, "batch": BATCH, "warmup_batch_2_steps_s": t_warm,
+        "batch_s": t_batch, "batch_s_per_image": t_batch / BATCH,
+        "single_over_batched_per_image": out[method]["edit_s"] * BATCH / t_batch,
+        "batch_launches": counts, "batch_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "edit_vs_single_max_mean": [_diff(e, st[:, 3 * size:]) for e, st in zip(edits, singles)]}
+    worst = max(m for m, _ in out[f"batched {method}"]["edit_vs_single_max_mean"])
+    if worst > F32_PANEL_TOL:
+        raise AssertionError(f"batched {method}: an edit {worst} uint8 levels from the "
+                             f"single-image editor's (limit {F32_PANEL_TOL})")
+    for name in VARIANTS:
+        out[name].pop("strip")
+    del pipe
+    torch.cuda.empty_cache()
+    return out
 
 
 F32_DI_STEPS = 50        # DDIM steps of the f32 directinversion+p2p edit
@@ -1629,10 +2015,11 @@ F32_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_f32.cu"
 TPU_FLASH = "pnpinversion_tpu/ops/flash_attention.py"
 
 
-def _f32_entries(f32: dict, f32_path: dict) -> list:
+def _f32_entries(f32: dict, f32_path: dict, fwd_by_path: dict) -> list:
     """The f32 kernels' entries of the kernels line: the forward at the f32
     DirectInversion scan's 64^2 shape (3 rows) with its launches in the f32
-    directinversion+p2p edit, the dQ and dK/dV kernels at the f32 null-text
+    directinversion+p2p edit (and, by path, in the f32 families of the bf16
+    pipeline: ``fwd_by_path``), the dQ and dK/dV kernels at the f32 null-text
     inner loop's 64^2 shape with their launches in the f32 null-text edit.
     SDPA's backward computes dQ, dK and dV together, so the dK/dV entry's
     times are the whole f32 backward's (delta, dQ, dK/dV), like with like,
@@ -1641,7 +2028,8 @@ def _f32_entries(f32: dict, f32_path: dict) -> list:
     bwd = next(r for r in f32["bwd_rows"] if r["case"] == "f32_nulltext_64x64")
     err = f32["max_abs_err"]
     di, nt = f32_path["directinversion+p2p"]["launches"], f32_path[NULL_TEXT]["launches"]
-    by_path = {"fwd": {"f32 directinversion+p2p": di["fwd"], f"f32 {NULL_TEXT}": nt["fwd"]},
+    by_path = {"fwd": {"f32 directinversion+p2p": di["fwd"], f"f32 {NULL_TEXT}": nt["fwd"],
+                       **fwd_by_path},
                "bwd": {f"f32 {NULL_TEXT}": nt["dq"]}}
     common = {"route": "cuda", "source": F32_SOURCE}
     return [
@@ -1751,10 +2139,14 @@ def main() -> int:
     print("batched_null_text_early_stop", json.dumps(early_stop), flush=True)
     families = families_phase(pipe)
     masactrl_controls = masactrl_controls_phase(pipe)
+    edict = edict_phase(pipe)
     del pipe
+    gc.collect()  # free it before the f32 phases read their peak memory
     torch.cuda.empty_cache()
     f32_path = f32_path_phase()
     print("f32_path_summary", json.dumps(f32_path), flush=True)
+    instruct = instruct_phase()
+    print("instruct", json.dumps(instruct), flush=True)
     print("path_shapes", json.dumps(_check_path_shapes()), flush=True)
     evaluation = eval_phase(batch_out)
     print("evaluation", json.dumps(evaluation), flush=True)
@@ -1765,10 +2157,18 @@ def main() -> int:
                    f"batched directinversion+p2p x{BATCH}": batched["flash_launches_per_batch"],
                    NULL_TEXT: nt_launches["fwd"], "ddim+p2p": ddim["launches"]["fwd"]}
     bwd_by_path = {NULL_TEXT: nt_launches["main"]}
+    f32_by_path = {}
     for method, row in families.items():
-        fwd_by_path[f"{row['steps']} steps: {method}"] = row["launches"]["fwd"]
+        by_path = f32_by_path if row["kernel"] == "f32" else fwd_by_path
+        by_path[f"{row['steps']} steps: {method}"] = row["launches"]["fwd"]
         if "batch_launches" in row:
-            fwd_by_path[f"batched {method} x{BATCH}"] = row["batch_launches"]["fwd"]
+            by_path[f"batched {method} x{BATCH}"] = row["batch_launches"]["fwd"]
+    for rows in (edict, instruct):
+        for method, row in rows.items():
+            key = "batch_launches" if method.startswith("batched") else "launches"
+            if isinstance(row, dict) and key in row:
+                name = f"{method} x{BATCH}" if method.startswith("batched") else method
+                f32_by_path[f"{row['steps']} steps: {name}"] = row[key]["fwd"]
     for name, row in masactrl_controls.items():
         fwd_by_path[f"one UNet call, MasaCtrl {name}"] = row["launches"]
     for prefix, rows in ((f"{VARIANT_STEPS} steps: ", variants),
@@ -1790,7 +2190,7 @@ def main() -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": head["shape"], "per_case": flash["rows"]},
-        *bwd_entries, *_f32_entries(f32, f32_path),
+        *bwd_entries, *_f32_entries(f32, f32_path, f32_by_path),
     ]}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,9 @@
 
 ``SD14`` mirrors the architecture of "CompVis/stable-diffusion-v1-4":
 UNet2DConditionModel / AutoencoderKL / CLIPTextModel (ViT-L/14 text tower).
-``TINY`` is a shape-compatible miniature for fast CPU tests.
+``IP2P`` is SD1.4 with an 8-channel UNet input (InstructPix2Pix,
+InstructDiffusion). ``TINY`` is a shape-compatible miniature for fast CPU
+tests.
 """
 from __future__ import annotations
 
@@ -80,6 +82,11 @@ SD14_UNET = UNetConfig()
 SD14_VAE = VAEConfig()
 SD14_TEXT = CLIPTextConfig()
 SD14 = StableDiffusionConfig(unet=SD14_UNET, vae=SD14_VAE, text=SD14_TEXT, name="sd14")
+
+# InstructPix2Pix-style edit-conditioned UNet: 8 input channels (4 latent + 4
+# image-conditioning channels, concatenated)
+IP2P_UNET = dataclasses.replace(SD14_UNET, in_channels=8)
+IP2P = StableDiffusionConfig(unet=IP2P_UNET, vae=SD14_VAE, text=SD14_TEXT, name="ip2p")
 
 TINY_UNET = UNetConfig(
     sample_size=8,

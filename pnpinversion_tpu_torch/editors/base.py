@@ -20,15 +20,17 @@ class Editor:
         pipeline's image size."""
         return load_image(image_path, self.pipe.config.image_size)
 
-    def encode_image(self, image: np.ndarray) -> torch.Tensor:
-        """uint8 (H, W, 3) -> scaled latent (1, h, w, 4)."""
+    def encode_image(self, image: np.ndarray, dtype=None) -> torch.Tensor:
+        """uint8 (H, W, 3) -> scaled latent (1, h, w, 4), encoded in ``dtype``
+        (the pipeline's by default)."""
         img = torch.as_tensor(np.ascontiguousarray(image), device=self.pipe.device)
-        return image_to_latent(self.pipe.vae, img, dtype=self.pipe.dtype)
+        return image_to_latent(self.pipe.vae, img, dtype=dtype or self.pipe.dtype)
 
     def decode_image(self, latents: torch.Tensor) -> np.ndarray:
-        """(B, h, w, 4) -> uint8 (B, H, W, 3) on the host; latents of another
-        dtype (edit-friendly DDPM's f32) are decoded in the pipeline's."""
-        return latent_to_image(self.pipe.vae, latents.to(self.pipe.dtype)).cpu().numpy()
+        """(B, h, w, 4) -> uint8 (B, H, W, 3) on the host, decoded in the
+        latents' dtype (f32 for EF's, EDICT's and the instruction editors'
+        latents, whatever the pipeline's)."""
+        return latent_to_image(self.pipe.vae, latents).cpu().numpy()
 
     def strip(self, prompt_src, prompt_tar, image_gt, recon, edit) -> np.ndarray:
         size = self.pipe.config.image_size

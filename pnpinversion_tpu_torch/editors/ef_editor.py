@@ -7,7 +7,10 @@ when the prompts have as many words, else Refine, and self-attention
 replaced only at maps of at most 16^2 pixels (the reference's copy of the
 controller). The schedule has ``steps_offset=1`` (SD1.4's scheduler config).
 The noise comes from a ``torch.Generator`` seeded with ``seed`` on the
-pipeline's device. ``skip`` is at most T - 1, as in the batched class.
+pipeline's device. ``skip`` is at most T - 1, as in the batched class. The
+image is encoded in the pipeline's dtype; both UNet passes and the final
+decode compute in f32, as the f32 latents make the layers compute (in both
+packages the layers cast their weights to the activation's dtype).
 
 The result is the strip [instruction | ground truth | source row | target
 row], uint8 (H, 4W, 3).

@@ -6,10 +6,12 @@ axis, and their rows go through the UNet as one batch (image-major).
 
 Precision: the JAX package's schedule tables are f32 arrays, so its EF
 latents, noise maps and step arithmetic are f32 whatever the pipeline's
-dtype. Here too they are f32 (the alphas enter as f32 scalars); the UNet
-sees the latents in its own dtype, so on a bf16 pipeline the self-attention
-runs in the bf16 flash kernel (the JAX package's f32 latents also turn its
-UNet to f32 there).
+dtype, and its layers, which cast each weight to the activation's dtype, run
+the UNet on those latents in f32. Here too: the latents are f32 (the alphas
+enter as f32 scalars) and the port's layers cast their weights the same way,
+so a bf16 pipeline's UNet computes in f32 and its self-attention runs in the
+f32 flash kernels. The guidance scales are rounded to the
+embeddings' dtype (the pipeline's), as the JAX editors make them.
 
 The noise of ``sample_xts_from_x0`` comes from a ``torch.Generator`` (the
 JAX package draws it from ``jax.random``, which torch cannot reproduce), one
@@ -84,23 +86,21 @@ def ef_forward_process(
     eta: float = 1.0,
     xts0: Optional[torch.Tensor] = None,  # (N, T+1, 1, h, w, c) noisings of x0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Extract the per-step noise maps. Returns (zs (N, T, 1, h, w, c), the
-    re-chained trajectory xts (N, T+1, 1, h, w, c)), both f32; zs[:, 0] is
-    zero."""
+    """Extract the per-step noise maps with ``unet`` computing in f32.
+    Returns (zs (N, T, 1, h, w, c), the re-chained trajectory xts (N, T+1,
+    1, h, w, c)), both f32; zs[:, 0] is zero."""
     T = schedule.num_steps
     if xts0 is None:
         xts0 = sample_xts_from_x0(generator, schedule, x0)
     xts0 = xts0.float()
-    dtype = x0.dtype
     ctx = torch.cat([uncond_embedding, cond_embedding], dim=1)
+    g = _scalar(cfg_scale, cond_embedding)
     xt = xts0[:, T]
     zs, xs = [], []
     for i in range(T):
         t = schedule.timesteps[i]
-        x_in = xt.to(dtype)
-        eps2, _ = apply_images(unet, torch.cat([x_in, x_in], dim=1), t, ctx)
-        eps2 = eps2.float()
-        eps = eps2[:, :1] + _scalar(cfg_scale, x_in) * (eps2[:, 1:] - eps2[:, :1])
+        eps2, _ = apply_images(unet, torch.cat([xt, xt], dim=1), t, ctx)
+        eps = eps2[:, :1] + g * (eps2[:, 1:] - eps2[:, :1])
         mu, sigma = _mean(schedule, t, eta, xt, eps)
         z = (xts0[:, T - 1 - i] - mu) / sigma
         xt = mu + sigma * z  # the trajectory re-chained through the extracted z
@@ -127,24 +127,20 @@ def ef_reverse_process(
 ) -> torch.Tensor:
     """DDPM-like sampling that re-injects the stored noise maps: step k runs
     at t = timesteps[T - Z + k] and adds zs[:, Z - 1 - k]. Each row has its
-    own guidance scale (rounded to the UNet's dtype). Returns the final
-    latents (N, B, h, w, c), f32."""
+    own guidance scale; ``unet`` computes in f32. Returns the final latents
+    (N, B, h, w, c), f32."""
     T = schedule.num_steps
     Z = num_zs if num_zs is not None else zs.shape[1]
     N, B = cond_embeddings.shape[:2]
-    dtype = cond_embeddings.dtype
     ctx = torch.cat([uncond_embeddings, cond_embeddings], dim=1)
     latents = xT.float().expand((N, B) + xT.shape[2:])
     state = control.init_state(B, heads=unet.config.num_heads, device=xT.device, images=N)
-    probe = torch.empty((), dtype=dtype)
-    scales = torch.tensor([_scalar(g, probe) for g in cfg_scales], dtype=torch.float32,
-                          device=xT.device).view(1, B, 1, 1, 1)
+    scales = torch.tensor([_scalar(g, cond_embeddings) for g in cfg_scales],
+                          dtype=torch.float32, device=xT.device).view(1, B, 1, 1, 1)
     for k in range(Z):
         t = schedule.timesteps[T - Z + k]
-        x_in = latents.to(dtype)
-        eps2, state = apply_images(unet, torch.cat([x_in, x_in], dim=1), t, ctx, control,
+        eps2, state = apply_images(unet, torch.cat([latents, latents], dim=1), t, ctx, control,
                                    tensors, state, k)
-        eps2 = eps2.float()
         eps = eps2[:, :B] + scales * (eps2[:, B:] - eps2[:, :B])
         mu, sigma = _mean(schedule, t, eta, latents, eps)
         latents = mu + sigma * zs[:, Z - 1 - k]

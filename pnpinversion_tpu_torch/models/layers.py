@@ -6,7 +6,9 @@ channels_last memory format, so the NHWC views the JAX package computes on
 transformers names and layouts (Linear (out, in), Conv2d OIHW), so the
 JAX package's weights and real checkpoints load by key.
 
-Numerics follow ``pnpinversion_tpu/models/layers.py``: GroupNorm takes one-pass
+Numerics follow ``pnpinversion_tpu/models/layers.py``: Linear and Conv2d cast
+their parameters to the dtype of the activation they meet, so f32 activations
+run a bf16 model in f32 on its bf16-valued weights; GroupNorm takes one-pass
 moments E[x^2] - E[x]^2 in f32; LayerNorm is one-pass for bf16 and two-pass
 for f32; a stride-2 "SAME" conv pads (0 before, 1 after) as XLA does.
 """
@@ -110,6 +112,14 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # parameter holders (diffusers names) whose forward is the functional layer
 # ---------------------------------------------------------------------------
+
+class Linear(nn.Linear):
+    """nn.Linear computing in its input's dtype (the parameters cast to it)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d's parameters with XLA's "SAME"/"VALID" padding."""

@@ -21,6 +21,7 @@ from pnpinversion_tpu_torch.models.layers import (
     Conv2d,
     GroupNorm,
     LayerNorm,
+    Linear,
     nearest_upsample_2x,
     silu,
     timestep_embedding,
@@ -97,7 +98,7 @@ class ResnetBlock(nn.Module):
         self.norm1 = GroupNorm(groups, in_ch, eps=eps)
         self.conv1 = Conv2d(in_ch, out_ch, 3)
         if temb_dim is not None:
-            self.time_emb_proj = nn.Linear(temb_dim, out_ch)
+            self.time_emb_proj = Linear(temb_dim, out_ch)
         self.norm2 = GroupNorm(groups, out_ch, eps=eps)
         self.conv2 = Conv2d(out_ch, out_ch, 3)
         if in_ch != out_ch:
@@ -120,16 +121,16 @@ class Attention(nn.Module):
     def __init__(self, query_dim: int, context_dim: Optional[int] = None):
         super().__init__()
         kv_dim = context_dim if context_dim is not None else query_dim
-        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_k = nn.Linear(kv_dim, query_dim, bias=False)
-        self.to_v = nn.Linear(kv_dim, query_dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+        self.to_q = Linear(query_dim, query_dim, bias=False)
+        self.to_k = Linear(kv_dim, query_dim, bias=False)
+        self.to_v = Linear(kv_dim, query_dim, bias=False)
+        self.to_out = nn.ModuleList([Linear(query_dim, query_dim)])
 
 
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -139,7 +140,7 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), nn.Linear(dim * 4, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), Linear(dim * 4, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))
@@ -213,8 +214,8 @@ class UNet(nn.Module):
         n = len(chs)
 
         self.time_embedding = nn.Module()
-        self.time_embedding.linear_1 = nn.Linear(chs[0], temb_dim)
-        self.time_embedding.linear_2 = nn.Linear(temb_dim, temb_dim)
+        self.time_embedding.linear_1 = Linear(chs[0], temb_dim)
+        self.time_embedding.linear_2 = Linear(temb_dim, temb_dim)
         self.conv_in = Conv2d(config.in_channels, chs[0], 3)
 
         self.down_blocks = nn.ModuleList()
@@ -312,7 +313,8 @@ def apply_images(unet: UNet, x: torch.Tensor, t: int, context: torch.Tensor,
                  step: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """The UNet on N images' rows at once: x (N, R, h, w, c) and context
     (N, R, 77, D) go in as one batch of N*R rows, image-major (the layout a
-    control's hooks expect); returns (eps (N, R, h, w, c), control state)."""
+    control's hooks expect); returns (eps (N, R, h, w, out_channels), control
+    state)."""
     eps, state = unet(x.reshape((-1,) + x.shape[2:]), t,
                       context.reshape((-1,) + context.shape[2:]), control, tensors, state, step)
-    return eps.reshape(x.shape), state
+    return eps.reshape(x.shape[:-1] + eps.shape[-1:]), state

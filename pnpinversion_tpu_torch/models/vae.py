@@ -1,6 +1,7 @@
 """AutoencoderKL, the SD VAE (port of ``pnpinversion_tpu/models/vae.py``),
 with diffusers' names. The editing path uses the posterior mean (scaled by
-0.18215) and the decoder. Public functions take and return NHWC tensors.
+0.18215, or unscaled) and the decoder. Public functions take and return NHWC
+tensors.
 """
 from __future__ import annotations
 
@@ -9,7 +10,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from pnpinversion_tpu_torch.configs import VAEConfig
-from pnpinversion_tpu_torch.models.layers import Conv2d, GroupNorm, nearest_upsample_2x, silu
+from pnpinversion_tpu_torch.models.layers import (
+    Conv2d,
+    GroupNorm,
+    Linear,
+    nearest_upsample_2x,
+    silu,
+)
 from pnpinversion_tpu_torch.models.unet import Block, Resample, ResnetBlock
 
 
@@ -19,10 +26,10 @@ class VAEAttention(nn.Module):
     def __init__(self, ch: int, groups: int):
         super().__init__()
         self.group_norm = GroupNorm(groups, ch, eps=1e-6)
-        self.to_q = nn.Linear(ch, ch)
-        self.to_k = nn.Linear(ch, ch)
-        self.to_v = nn.Linear(ch, ch)
-        self.to_out = nn.ModuleList([nn.Linear(ch, ch)])
+        self.to_q = Linear(ch, ch)
+        self.to_k = Linear(ch, ch)
+        self.to_v = Linear(ch, ch)
+        self.to_out = nn.ModuleList([Linear(ch, ch)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -96,9 +103,10 @@ class VAE(nn.Module):
         self.quant_conv = Conv2d(2 * lat, 2 * lat, 1)
         self.post_quant_conv = Conv2d(lat, lat, 1)
 
-    def encode(self, image: torch.Tensor) -> torch.Tensor:
-        """image (B, H, W, 3) in [-1, 1] -> posterior mean x scaling factor,
-        (B, h, w, 4)."""
+    def encode(self, image: torch.Tensor, scale: bool = True) -> torch.Tensor:
+        """image (B, H, W, 3) in [-1, 1] -> posterior mean (B, h, w, 4), times
+        the scaling factor unless ``scale`` is False (the unscaled mean is the
+        instruction editors' image conditioning)."""
         enc = self.encoder
         h = enc.conv_in(image.permute(0, 3, 1, 2))
         for blk in enc.down_blocks:
@@ -109,7 +117,9 @@ class VAE(nn.Module):
         h = enc.mid_block(h)
         h = enc.conv_out(silu(enc.conv_norm_out(h)))
         mean = self.quant_conv(h)[:, : self.config.latent_channels]
-        return (mean * self.config.scaling_factor).permute(0, 2, 3, 1)
+        if scale:
+            mean = mean * self.config.scaling_factor
+        return mean.permute(0, 2, 3, 1)
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """scaled latents (B, h, w, 4) -> image (B, H, W, 3) in [-1, 1]."""

@@ -1,7 +1,7 @@
 """Batched editing: N images as one leading batch on one GPU (port of
 ``pnpinversion_tpu/parallel/sweep.py``'s ``BatchedDirectInversionP2P``,
-``BatchedMasaCtrl``, ``BatchedPnP`` and ``BatchedEditFriendly``, without
-their device mesh).
+``BatchedMasaCtrl``, ``BatchedPnP``, ``BatchedEditFriendly``, ``BatchedEDICT``
+and ``BatchedInstruct``, without their device mesh).
 
 Where the JAX package ``vmap``s a one-image pipeline over an image axis and
 shards it over a mesh, here the N images' UNet rows go through one UNet call
@@ -28,9 +28,20 @@ import numpy as np
 import torch
 
 from pnpinversion_tpu_torch.control.base import NO_CONTROL
+from pnpinversion_tpu_torch.control.edict_p2p import EdictP2PControl
 from pnpinversion_tpu_torch.control.masactrl import MasaCtrlControl, MasaCtrlSpec
 from pnpinversion_tpu_torch.control.p2p import P2PControl, P2PSpec
 from pnpinversion_tpu_torch.control.pnp import make_pnp_control
+from pnpinversion_tpu_torch.editors.edict_editor import METHODS as EDICT_METHODS
+from pnpinversion_tpu_torch.editors.edict_editor import (
+    GUIDANCE_SCALE,
+    INIT_IMAGE_STRENGTH,
+    PRECISIONS,
+    RECON_GUIDANCE_SCALE,
+    coupled_scan,
+)
+from pnpinversion_tpu_torch.editors.instruct_editor import VARIANTS as INSTRUCT_VARIANTS
+from pnpinversion_tpu_torch.editors.instruct_editor import instruct_sample
 from pnpinversion_tpu_torch.editors.p2p_editor import (
     GUIDANCE_GRID,
     direct_inversion_ablation,
@@ -88,17 +99,18 @@ def _cached_embed(obj, prompts) -> torch.Tensor:
     return obj._cache[key]
 
 
-def _encode_images(pipe: SDPipeline, images_u8) -> torch.Tensor:
-    """uint8 (N, H, W, 3) -> latents (N, 1, h, w, 4)."""
+def _encode_images(pipe: SDPipeline, images_u8, dtype=None) -> torch.Tensor:
+    """uint8 (N, H, W, 3) -> latents (N, 1, h, w, 4), encoded in ``dtype``
+    (the pipeline's by default)."""
     images = torch.as_tensor(np.ascontiguousarray(images_u8), device=pipe.device)
-    return image_to_latent(pipe.vae, images, dtype=pipe.dtype)[:, None]
+    return image_to_latent(pipe.vae, images, dtype=dtype or pipe.dtype)[:, None]
 
 
 def _decode_pair(pipe: SDPipeline, a: torch.Tensor, b: torch.Tensor):
-    """Latents a and b (N, h, w, 4) decoded in one VAE call: uint8 (N, H, W, 3)
-    each, on the host."""
+    """Latents a and b (N, h, w, 4) decoded in one VAE call, in their dtype:
+    uint8 (N, H, W, 3) each, on the host."""
     n = a.shape[0]
-    both = latent_to_image(pipe.vae, torch.cat([a, b]).to(pipe.dtype)).cpu().numpy()
+    both = latent_to_image(pipe.vae, torch.cat([a, b])).cpu().numpy()
     return both[:n], both[n:]
 
 
@@ -335,7 +347,8 @@ class BatchedEditFriendly:
     one noise draw from ``seed`` (as the JAX class gives them one key), so
     each image is its single-image edit. Images whose P2P spec differs
     (Replace when the word counts match, else Refine) run in different
-    batches: ``group_items_by_spec``."""
+    batches: ``group_items_by_spec``. The UNet and the decode compute in
+    f32, as in the editor."""
 
     def __init__(self, pipe: SDPipeline, eta: float = 1.0, skip: int = 12,
                  steps_offset: int = 1, seed: int = 1234):
@@ -370,3 +383,96 @@ class BatchedEditFriendly:
                                [source_guidance_scale, target_guidance_scale], eta=self.eta,
                                control=P2PControl(spec), tensors=tensors, num_zs=Z)
         return _decode_pair(pipe, w[:, 0], w[:, 1])
+
+
+class BatchedEDICT:
+    """EDICT (``edict+direct_forward``, ``edict+p2p``) over a batch of
+    images; the per-image pipeline is the editor's
+    (``editors/edict_editor.py``): the strength-1.0 round trip at guidance 7
+    for the reconstruction, the strength-0.8 one at guidance 3 for the edit.
+    The UNet and the VAE compute in f32 on the pipeline's weights, with the
+    embeddings cast to f32; the latent pair is f32 or float64
+    (``precision``)."""
+
+    METHODS = EDICT_METHODS
+
+    def __init__(self, pipe: SDPipeline, precision: str = "f32"):
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+        self.pipe = pipe
+        self.precision = precision
+        self.schedule = make_ddim_schedule(num_steps=pipe.schedule.num_steps)
+        self._cache: Dict[Any, Any] = {}
+
+    @torch.inference_mode()
+    def edit_batch(self, method: str, images_u8, cond_src: torch.Tensor, cond_tar: torch.Tensor,
+                   tensors: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """images_u8 (N, H, W, 3) uint8; cond_src/cond_tar (N, 1, 77, D);
+        tensors: each image's ``make_edict_p2p_tensors`` stacked on a leading
+        N axis (``edict+p2p`` only). Returns (recon, edit), uint8
+        (N, H, W, 3) each."""
+        if method not in self.METHODS:
+            raise NotImplementedError(f"{method!r} is not an EDICT method")
+        pipe, sched = self.pipe, self.schedule
+        T = sched.num_steps
+        t_limit = T - int(T * INIT_IMAGE_STRENGTH)
+        cond_src, cond_tar = (c.to(pipe.device, torch.float32) for c in (cond_src, cond_tar))
+        N = cond_src.shape[0]
+        uncond = _cached_embed(self, [""]).float()[None].expand(N, -1, -1, -1)
+        ctx_src = torch.cat([uncond, cond_src], dim=1)
+        latent = _encode_images(pipe, images_u8, torch.float32)
+        pair0 = torch.cat([latent, latent], dim=1)
+
+        def round_trip(ctx_out, g, lim, **kw):
+            inv = coupled_scan(pipe.unet, sched, pair0, ctx_src, g, lim, True,
+                               precision=self.precision)
+            return coupled_scan(pipe.unet, sched, inv, ctx_out, g, lim, False,
+                                precision=self.precision, **kw)
+
+        rec = round_trip(ctx_src, RECON_GUIDANCE_SCALE, 0)
+        if method == "edict+p2p":
+            out = round_trip(ctx_src, GUIDANCE_SCALE, t_limit, control=EdictP2PControl(T),
+                             tensors=tensors, edit_context=cond_tar)
+        else:
+            out = round_trip(torch.cat([uncond, cond_tar], dim=1), GUIDANCE_SCALE, t_limit)
+        return _decode_pair(pipe, rec[:, 0].float(), out[:, 0].float())
+
+
+class BatchedInstruct:
+    """InstructPix2Pix and InstructDiffusion over a batch of images; the
+    per-image pipeline is ``editors/instruct_editor.py``'s. The pipeline
+    must carry the 8-channel UNet (``configs.IP2P``). The images share one
+    noise sequence of one image's shape, drawn from ``seed`` (the JAX class
+    gives every image the same key), so each image is its single-image
+    edit. As in the editor, the image is encoded in the pipeline's dtype and
+    the UNet and the decode compute in f32."""
+
+    VARIANTS = INSTRUCT_VARIANTS
+
+    def __init__(self, pipe: SDPipeline, steps: Optional[int] = None, seed: int = 1234):
+        self.pipe = pipe
+        self.steps = steps if steps is not None else pipe.schedule.num_steps
+        self.seed = seed
+        self._cache: Dict[Any, Any] = {}
+
+    @torch.inference_mode()
+    def edit_batch(self, method: str, images_u8, text_cond: torch.Tensor,
+                   cfg_text: Optional[float] = None,
+                   cfg_image: Optional[float] = None) -> np.ndarray:
+        """images_u8 (N, H, W, 3) uint8; text_cond (N, 1, 77, D), each
+        image's instruction. Returns the edits, uint8 (N, H, W, 3)."""
+        if method not in self.VARIANTS:
+            raise NotImplementedError(f"{method!r} is not an instruction-editing method")
+        pipe = self.pipe
+        variant, ct, ci = self.VARIANTS[method]
+        images = torch.as_tensor(np.ascontiguousarray(images_u8), device=pipe.device)
+        image_cond = pipe.vae.encode(images.to(pipe.dtype) / 127.5 - 1.0, scale=False)
+        N = images.shape[0]
+        uncond = _cached_embed(self, [""])[None].expand(N, -1, -1, -1)
+        gen = torch.Generator(device=pipe.device).manual_seed(self.seed)
+        latents = instruct_sample(pipe.unet, pipe.schedule, image_cond[:, None],
+                                  text_cond.to(pipe.device), uncond, self.steps,
+                                  cfg_text if cfg_text is not None else ct,
+                                  cfg_image if cfg_image is not None else ci, gen, variant)[:, 0]
+        return latent_to_image(pipe.vae, latents).cpu().numpy()

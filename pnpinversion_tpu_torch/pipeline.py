@@ -4,10 +4,17 @@ dtype.
 
 ``SDPipeline.create`` runs on ``cuda`` unless the caller passes a device; with
 no CUDA device and no device given it raises. The dtype defaults to bf16 on
-the card and f32 on the CPU, and every float parameter is cast to it. An f32
-pipeline on the card runs in full f32: ``create`` turns TF32 off for f32
+the card and f32 on the CPU, and every float parameter is cast to it.
+
+The modules compute in their input's dtype (``models/layers.py``: Linear and
+Conv2d cast their weights to it), as the JAX package's layers do. So a bf16
+pipeline also serves the families that compute in f32 (edit-friendly DDPM's
+and EDICT's f32 latents, the instruction editors' f32 sigmas): f32 inputs
+run its UNet and VAE in f32 on the bf16-valued weights, with no copy of the
+modules. f32 on the card is full f32: ``create`` turns TF32 off for f32
 matrix products and cuDNN convolutions (``utils.device.use_full_f32``, for
-the process), as the JAX package's f32 path and the CPU reference compute.
+the process) on every pipeline it makes there, as the JAX package's f32
+paths and the CPU reference compute; bf16 work is unaffected.
 """
 from __future__ import annotations
 
@@ -56,11 +63,11 @@ class SDPipeline:
     ) -> "SDPipeline":
         """Random-weight pipeline (the JAX package's init distributions, drawn
         from ``seed`` on the device), or the weights of a JAX param tree with
-        numpy leaves when ``jax_params`` is given. f32 on CUDA turns TF32 off
+        numpy leaves when ``jax_params`` is given. On CUDA it turns TF32 off
         for the process (full f32, see the module docstring)."""
         device = resolve_device(device)
         dtype = dtype or default_dtype(device)
-        if dtype == torch.float32 and device.type == "cuda":
+        if device.type == "cuda":
             use_full_f32()
         if jax_params is not None:
             modules = from_jax_params(jax_params, config)

@@ -7,8 +7,9 @@ f32 on the card means full f32. PyTorch runs f32 matrix products in full f32
 by default, but sends f32 convolutions through cuDNN in TF32
 (``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
 decimal digits. The JAX package's f32 paths and the CPU reference keep all
-24 bits, so the f32 entry points (an f32 ``SDPipeline``, the
-``MetricsCalculator``) call ``use_full_f32`` when they start on the card.
+24 bits, so the entry points that make models on the card (``SDPipeline``,
+of any dtype, since a bf16 pipeline computes in f32 for the f32 families;
+the ``MetricsCalculator``) call ``use_full_f32``.
 """
 from __future__ import annotations
 

@@ -54,24 +54,39 @@ def pipeline_params(config, seed: int = 0):
             "text": numpy_params(init_clip_text_params, config.text, seed + 2)}
 
 
-def jax_pipeline(params, steps: int):
-    """The JAX package's SDPipeline at TINY with these weights (built
-    directly: its ``create`` would compile a random init we do not use)."""
+def tiny_configs(in_channels: int = 4):
+    """(JAX config, port config): TINY, with an ``in_channels``-channel UNet
+    input (8 for the instruction editors' UNet)."""
+    import dataclasses
+
+    from pnpinversion_tpu.configs import TINY as JTINY
+    from pnpinversion_tpu_torch.configs import TINY
+
+    return tuple(dataclasses.replace(c, unet=dataclasses.replace(c.unet, in_channels=in_channels))
+                 for c in (JTINY, TINY))
+
+
+def jax_pipeline(params, steps: int, config=None, dtype=jnp.float32):
+    """The JAX package's SDPipeline (TINY unless ``config`` is given) with
+    these weights, cast to ``dtype`` (built directly: its ``create`` would
+    compile a random init we do not use)."""
     from pnpinversion_tpu.configs import TINY
     from pnpinversion_tpu.pipeline import SDPipeline
     from pnpinversion_tpu.schedulers.ddim import make_ddim_schedule
     from pnpinversion_tpu.utils.tokenizer import default_tokenizer
 
-    return SDPipeline(config=TINY, params=jax.tree.map(jnp.asarray, params),
+    return SDPipeline(config=config or TINY,
+                      params=jax.tree.map(lambda x: jnp.asarray(x, dtype), params),
                       tokenizer=default_tokenizer(), schedule=make_ddim_schedule(steps),
-                      dtype=jnp.float32)
+                      dtype=dtype)
 
 
-def torch_pipeline(params, steps: int):
+def torch_pipeline(params, steps: int, config=None, dtype=torch.float32):
     from pnpinversion_tpu_torch.configs import TINY
     from pnpinversion_tpu_torch.pipeline import SDPipeline
 
-    return SDPipeline.create(TINY, num_ddim_steps=steps, device="cpu", jax_params=params)
+    return SDPipeline.create(config or TINY, num_ddim_steps=steps, device="cpu", dtype=dtype,
+                             jax_params=params)
 
 
 def to_numpy(x) -> np.ndarray:
@@ -87,26 +102,31 @@ def rel_err(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def assert_strips_match(got: np.ndarray, want: np.ndarray, size: int = 16) -> None:
+def assert_strips_match(got: np.ndarray, want: np.ndarray, size: int = 16,
+                        flipped: float = 1e-3) -> None:
     """Two editors' 4-panel strips: the instruction and ground-truth panels
     are exact; the decoded panels are truncated to uint8, which flips a value
     wherever the f32 noise of the loops and a decode straddles an integer, so
-    they may differ by 1 on at most 1e-3 of their values."""
+    they may differ by 1 on at most ``flipped`` of their values (1e-3 for
+    loops whose f32 noise is ~1e-6 of max)."""
     assert got.shape == want.shape == (size, 4 * size, 3) and got.dtype == np.uint8
     np.testing.assert_array_equal(got[:, : 2 * size], want[:, : 2 * size])
     diff = np.abs(got.astype(int) - want.astype(int))
-    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    assert diff.max() <= 1 and (diff > 0).mean() <= flipped
 
 
-def jax_torch_pipelines(seed: int, steps: int):
-    """(JAX pipeline, port pipeline) at TINY with the same numpy weights and
-    word tokenizers."""
-    from pnpinversion_tpu.configs import TINY
+def jax_torch_pipelines(seed: int, steps: int, in_channels: int = 4, bf16: bool = False):
+    """(JAX pipeline, port pipeline) at TINY (``tiny_configs(in_channels)``)
+    with the same numpy weights and word tokenizers, in f32, or in bf16 (the
+    same bf16-rounded weights on both sides)."""
     from pnpinversion_tpu.utils.tokenizer import SimpleWordTokenizer
     from pnpinversion_tpu_torch.utils.tokenizer import default_tokenizer
 
-    params = pipeline_params(TINY, seed=seed)
-    jpipe, tpipe = jax_pipeline(params, steps), torch_pipeline(params, steps)
+    jcfg, tcfg = tiny_configs(in_channels)
+    params = pipeline_params(jcfg, seed=seed)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32, torch.float32)
+    jpipe = jax_pipeline(params, steps, jcfg, jdt)
+    tpipe = torch_pipeline(params, steps, tcfg, tdt)
     jpipe.tokenizer, tpipe.tokenizer = SimpleWordTokenizer(), default_tokenizer()
     return jpipe, tpipe
 

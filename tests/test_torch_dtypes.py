@@ -1,0 +1,161 @@
+"""The dtype each editor computes its UNet and VAE in, on a bf16 pipeline, in
+the PyTorch port and in the JAX package, for every method family the port
+has (TINY, 2 DDIM steps, on the CPU).
+
+The JAX package's layers cast each weight to the dtype of the activation
+they meet, so a JAX function that hands f32 activations to a bf16
+pipeline's modules computes in f32 (edit-friendly DDPM's latents, made f32
+by its f32 alphas; EDICT's; the instruction editors' f32 sigmas), and the
+port must compute there in f32 as well (its layers cast the same way). The
+JAX side is traced only: ``jax.jit`` becomes ``jax.eval_shape`` with zeros
+for results, and its UNet and VAE record their input's dtype and return
+zeros, so no JAX program is compiled. The port's side runs for real, bf16
+on the CPU, with its UNet and VAE recording theirs."""
+import collections
+import functools
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import pipeline_params, seeded_images, tiny_configs
+from pnpinversion_tpu_torch.models.unet import UNet
+from pnpinversion_tpu_torch.models.vae import VAE
+from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+torch.set_num_threads(2)
+
+STEPS = 2
+PROMPTS = ("a cat on a mat", "a dog on a mat")
+# (method, editor module (the same name in both packages), class, constructor keywords)
+RUNS = [(m, "p2p_editor", "P2PEditor", {}) for m in (
+    "directinversion+p2p", "ddim+p2p", "null-text-inversion+p2p",
+    "negative-prompt-inversion+p2p", "negative-prompt-inversion+proximal-guidance",
+    "null-text-inversion+proximal-guidance", "ablation_null-latent-inversion+p2p",
+    "ablation_null-text-inversion_single_branch+p2p", "directinversion+p2p_guidance_25_75",
+    "ablation_directinversion_04+p2p")] + [
+    ("ddim+masactrl", "masactrl_editor", "MasaCtrlEditor", {}),
+    ("directinversion+masactrl", "masactrl_editor", "MasaCtrlEditor", {}),
+    ("ddim+pnp", "pnp_editor", "PnPEditor", {}),
+    ("directinversion+pnp", "pnp_editor", "PnPEditor", {}),
+    ("edit-friendly-inversion+p2p", "ef_editor", "EditFriendlyEditor", {}),
+    ("edict+direct_forward", "edict_editor", "EDICTEditor", {}),
+    ("edict+p2p", "edict_editor", "EDICTEditor", {"precision": "df64"}),
+    ("instruct-pix2pix", "instruct_editor", "InstructEditor", {}),
+    ("instruct-diffusion", "instruct_editor", "InstructEditor", {}),
+]
+# the modules of the JAX package that call its UNet by name
+JAX_UNET_CALLERS = ("inversion.ddim_inversion", "sampling.p2p_forward", "inversion.ef_ddpm",
+                    "editors.pnp_editor", "editors.edict_editor", "editors.instruct_editor")
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_params(in_channels):
+    """bf16 zeros in the JAX TINY pipeline's tree (only shapes and dtypes
+    reach the traced programs), made once per UNet input width."""
+    jcfg, _ = tiny_configs(in_channels)
+    return jax.tree.map(lambda x: jnp.zeros(x.shape, jnp.bfloat16), pipeline_params(jcfg, seed=0))
+
+
+def _jax_dtypes(method, module, cls, kw):
+    """{"unet", "encode", "decode"} -> the dtypes the JAX editor's programs
+    hand its UNet and VAE, traced on a bf16 TINY pipeline."""
+    from pnpinversion_tpu.pipeline import SDPipeline as JaxSDPipeline
+    from pnpinversion_tpu.schedulers.ddim import make_ddim_schedule
+    from pnpinversion_tpu.utils.tokenizer import default_tokenizer
+
+    seen = collections.defaultdict(set)
+
+    def unet_apply(params, x, t, context, config, control=None, tensors=None, state=None,
+                   step=None):
+        seen["unet"].add(str(x.dtype))
+        return jnp.zeros(x.shape[:-1] + (config.out_channels,), x.dtype), state or {}
+
+    def vae_encode(params, image, config, rng=None, scale=True):
+        seen["encode"].add(str(image.dtype))
+        b, h, w, _ = image.shape
+        f = 2 ** (len(config.block_out_channels) - 1)
+        return jnp.zeros((b, h // f, w // f, config.latent_channels), image.dtype)
+
+    def vae_decode(params, latents, config, scale=True):
+        seen["decode"].add(str(latents.dtype))
+        f = 2 ** (len(config.block_out_channels) - 1)
+        b, h, w, _ = latents.shape
+        return jnp.zeros((b, h * f, w * f, 3), latents.dtype)
+
+    def traced_jit(fn, **_):
+        def run(*args, **kwargs):
+            out = jax.eval_shape(fn, *args, **kwargs)
+            return jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), out)
+        return run
+
+    jcfg, _ = tiny_configs(8 if module == "instruct_editor" else 4)
+    params = _zero_params(jcfg.unet.in_channels)
+    pipe = JaxSDPipeline(config=jcfg, params=params, tokenizer=default_tokenizer(),
+                         schedule=make_ddim_schedule(STEPS), dtype=jnp.bfloat16)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "jit", traced_jit)
+        for name in JAX_UNET_CALLERS:
+            mp.setattr(importlib.import_module(f"pnpinversion_tpu.{name}"), "unet_apply",
+                       unet_apply)
+        vae = importlib.import_module("pnpinversion_tpu.models.vae")
+        mp.setattr(vae, "vae_encode", vae_encode)
+        mp.setattr(vae, "vae_decode", vae_decode)
+        mp.setattr(importlib.import_module("pnpinversion_tpu.editors.instruct_editor"),
+                   "vae_encode", vae_encode)
+        editor = getattr(importlib.import_module(f"pnpinversion_tpu.editors.{module}"), cls)
+        _call(editor(pipe, **kw), method)
+    return dict(seen)
+
+
+def _torch_dtypes(method, module, cls, kw):
+    """The same for the port's editor, run in bf16 on the CPU."""
+    seen = collections.defaultdict(set)
+    forward, encode, decode = UNet.forward, VAE.encode, VAE.decode
+
+    def unet_forward(self, x, *args, **kwargs):
+        seen["unet"].add(str(x.dtype).replace("torch.", ""))
+        return forward(self, x, *args, **kwargs)
+
+    def vae_encode(self, image, *args, **kwargs):
+        seen["encode"].add(str(image.dtype).replace("torch.", ""))
+        return encode(self, image, *args, **kwargs)
+
+    def vae_decode(self, latents):
+        seen["decode"].add(str(latents.dtype).replace("torch.", ""))
+        return decode(self, latents)
+
+    _, tcfg = tiny_configs(8 if module == "instruct_editor" else 4)
+    pipe = SDPipeline.create(tcfg, num_ddim_steps=STEPS, device="cpu", dtype=torch.bfloat16)
+    editor = getattr(importlib.import_module(f"pnpinversion_tpu_torch.editors.{module}"), cls)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(UNet, "forward", unet_forward)
+        mp.setattr(VAE, "encode", vae_encode)
+        mp.setattr(VAE, "decode", vae_decode)
+        strip = _call(editor(pipe, **kw), method)
+    assert strip.shape == (16, 64, 3) and strip.dtype == np.uint8
+    return dict(seen)
+
+
+def _call(editor, method):
+    img = seeded_images(141, 1)[0]
+    if method.startswith("instruct"):
+        return editor(method, img, "make it a dog", steps=STEPS)
+    if method.startswith("edit-friendly"):
+        return editor(method, img, *PROMPTS, skip=1)
+    return editor(method, img, *PROMPTS)
+
+
+@pytest.mark.parametrize("method,module,cls,kw", RUNS, ids=[r[0] for r in RUNS])
+def test_port_computes_in_the_dtypes_jax_does(method, module, cls, kw):
+    """The UNet's, the VAE encoder's and the VAE decoder's input dtypes, as
+    sets over the edit: bf16 throughout for the P2P, MasaCtrl and PnP
+    families; an f32 UNet and decode for EF (its encode bf16), EDICT (its
+    encode f32 too) and the instruction editors (encode bf16)."""
+    want = _jax_dtypes(method, module, cls, kw)
+    assert _torch_dtypes(method, module, cls, kw) == want
+    f32 = module in ("ef_editor", "edict_editor", "instruct_editor")
+    assert want["unet"] == want["decode"] == {"float32" if f32 else "bfloat16"}

@@ -237,3 +237,47 @@ def test_batched_matches_single_editor(setup):
     for i, p in enumerate(PROMPTS):
         want = ted(METHOD, imgs[i], *p, skip=SKIP)[:, 2 * size:]
         assert_panels_close(np.concatenate([src[i], edit[i]], axis=1), want)
+
+
+@pytest.fixture(scope="module")
+def bf16_setup():
+    jpipe, tpipe = jax_torch_pipelines(seed=103, steps=STEPS, bf16=True)
+    return JaxEFEditor(jpipe), EditFriendlyEditor(tpipe)
+
+
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+def test_bf16_pipeline_latents_match_jax(setup, bf16_setup):
+    """On a bf16 pipeline (the same bf16-rounded weights in both packages)
+    the JAX package's f32 alphas make EF's latents f32, and its layers then
+    run the UNet on them in f32; the port's layers cast their weights the
+    same way, so its two passes run the bf16 pipeline's UNet in f32. Noise
+    maps, trajectory and the reverse pass under EF's P2P control match the
+    JAX editor's programs within the f32 loops' 1e-4 of max (bf16 inputs:
+    image latent, embeddings, guidance)."""
+    _, _, arr = setup
+    jed, ted = bf16_setup
+    unet = ted.pipe.unet
+    assert ted.pipe.dtype == torch.bfloat16 and unet.conv_in.weight.dtype == torch.bfloat16
+    bf = jnp.bfloat16
+    zs_w, xts_w = jed._forward_fn(1.0)(
+        jed.pipe.params["unet"], jnp.asarray(arr["x0"][0], bf), jnp.asarray(arr["cond"][0, :1], bf),
+        jnp.asarray(arr["uncond"][0, :1], bf), jnp.asarray(SCALES[0], bf), None)
+    assert zs_w.dtype == xts_w.dtype == jnp.float32
+    with torch.inference_mode():
+        zs, xts = tef.ef_forward_process(unet, ted.schedule, _bf16(arr["x0"][:1]),
+                                         _bf16(arr["cond"][:1, :1]), _bf16(arr["uncond"][:1, :1]),
+                                         SCALES[0], eta=1.0)
+    assert rel_err(zs[0], zs_w) <= RTOL and rel_err(xts[0], xts_w) <= RTOL
+    jcs, control, tensors = _ef_controls(jed, ted, PROMPTS[:1])
+    want = jed._reverse_fn(jcs[0][0].spec, 1.0, Z)(
+        jed.pipe.params["unet"], jnp.asarray(arr["x0"][0]), jnp.asarray(arr["zs"][0]),
+        jnp.asarray(arr["cond"][0], bf), jnp.asarray(arr["uncond"][0], bf),
+        jnp.asarray(SCALES, bf), jcs[0][1])
+    with torch.inference_mode():
+        got = tef.ef_reverse_process(unet, ted.schedule, _t(arr["x0"][:1]), _t(arr["zs"][:1]),
+                                     _bf16(arr["cond"][:1]), _bf16(arr["uncond"][:1]), SCALES,
+                                     eta=1.0, control=control, tensors=tensors, num_zs=Z)
+    assert got.dtype == torch.float32 and rel_err(got[0], want) <= RTOL

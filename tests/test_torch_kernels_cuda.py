@@ -312,3 +312,59 @@ def test_f32_pipeline_unet_call_on_cuda(cuda_device):
                 tflash.flash_attention_fwd.launches - before[1]) == (10, 0)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,sq,d", [(r, s, d) for r in (8, 12, 16)
+                                       for s, d in ((4096, 40), (1024, 80))])
+def test_f32_forward_at_batched_shapes_on_cuda(full_f32, rows, sq, d):
+    """The f32 forward at the f32 paths' batched shapes (B.H 64, 96, 128:
+    EDICT's 2 and 3 rows, EF's 2 and 4, the instruction editors' 3, each at
+    4 images) against its plain version in full f32, to the bounds above."""
+    q, k, v, _ = _f32_inputs(full_f32, rows, sq, sq, d, True)
+    out, lse = tflash.flash_attention_fwd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    want, lse_want = tflash.flash_attention_reference(q, k, v, d ** -0.5)
+    assert ((out - want).abs().max() / want.abs().max()).item() <= 2e-5
+    assert (lse - lse_want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_edict_p2p_unet_call_on_cuda(cuda_device):
+    """One f32 SD1.4 UNet call (a bf16 pipeline's UNet on f32 inputs) at 2 images x 3
+    rows [uncond, base, edit] under EDICT's takeover: each image's uncond
+    and base rows come out as the uncontrolled call's, bit for bit (the
+    takeover writes only the edit row), the edit rows move, and only the f32
+    forward runs, at every flash site."""
+    from pnpinversion_tpu_torch.configs import SD14
+    from pnpinversion_tpu_torch.control.base import NO_CONTROL
+    from pnpinversion_tpu_torch.control.edict_p2p import EdictP2PControl, make_edict_p2p_tensors
+    from pnpinversion_tpu_torch.control.p2p import stack_tensors
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        pipe = SDPipeline.create(SD14, device="cuda")
+        unet = pipe.unet
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+        gen = torch.Generator(device=cuda_device).manual_seed(6)
+        x = torch.randn((2, 1, 64, 64, 4), generator=gen, device=cuda_device).expand(
+            -1, 3, -1, -1, -1).reshape(6, 64, 64, 4)
+        pairs = [("a cat on a mat", "a dog on a mat"), ("a red car", "a blue car")]
+        ctx = torch.cat([pipe.encode_prompt(["", *p]) for p in pairs])
+        tensors = stack_tensors([make_edict_p2p_tensors(*p, pipe.tokenizer, device=cuda_device)
+                                 for p in pairs])
+        eps = {}
+        for name, control in (("plain", NO_CONTROL), ("edict", EdictP2PControl())):
+            before = tflash.flash_attention_fwd_f32.launches, tflash.flash_attention_fwd.launches
+            with torch.inference_mode():
+                eps[name], _ = unet(x, 500, ctx, control, tensors, {}, 0)
+            torch.cuda.synchronize()
+            assert (tflash.flash_attention_fwd_f32.launches - before[0],
+                    tflash.flash_attention_fwd.launches - before[1]) == (10, 0)
+            assert eps[name].dtype == torch.float32 and torch.isfinite(eps[name]).all()
+        kept, edited = [0, 1, 3, 4], [2, 5]
+        assert torch.equal(eps["edict"][kept], eps["plain"][kept])
+        assert all(not torch.equal(eps["edict"][r], eps["plain"][r]) for r in edited)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
