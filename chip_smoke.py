@@ -4,14 +4,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. the card's name and power limit, torch/CUDA versions, TF32 flags;
 2. build every CUDA kernel of the port from the sources in this checkout (one
    nvcc per source, all started together: the bf16 forward, the bf16
-   backward, the f32 kernels), print ptxas' registers and spills per kernel,
-   and fail on a spill or a wgmma that ptxas serialised;
+   backward, the f32 backward, the f32 forward), print ptxas' registers and
+   spills per kernel, and fail on a spill or a wgmma that ptxas serialised;
 3. hold each kernel against its plain PyTorch version at every shape the
    paths give it (and a few more), and time kernel, plain version and the
    PyTorch library call that computes the same function, with CUDA events
    around calls queued behind a spin kernel, so no host time is counted: the
    bf16 flash forward, then the bf16 backward's three kernels (prep, main,
-   dQ convert) and the whole backward, then the f32 forward, dQ and dK/dV
+   dQ convert) and the whole backward, then the f32 forward (its split pass
+   bit for bit against its plain version, the forward repeated bit for bit,
+   a row independent of the batch and of the rows per CTA), dQ and dK/dV
    kernels (TF32 off on both sides);
 4. drive the first path: ``P2PEditor("directinversion+p2p", ...)`` on an
    SD1.4 pipeline at full width (random weights from a seed, bf16, 512², 50
@@ -192,7 +194,7 @@ F32_O_RTOL = 2e-5
 F32_LSE_ATOL = 1e-5
 F32_BWD_RTOL = 1e-4
 H100_F32_FLOPS = 67e12    # FP32 on the CUDA cores, SXM, 700 W
-H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak: what a TF32 redesign could reach
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak (the f32 forward's 3xTF32 products)
 
 
 def card_line() -> str:
@@ -469,27 +471,43 @@ def bwd_kernel_phase(timing: bool = True) -> dict:
     return {"rows": rows, "max_abs_err": worst}
 
 
+def _bound(flops: float, peak: float, nbytes: float) -> tuple:
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def f32_flash_bounds(b, h, sq, sk, d) -> dict:
-    """Bounds of the f32 kernels on the CUDA cores' FP32 peak (``fwd``: QK^T
-    and PV, 4 B*H*Sq*Sk*d FLOPs; ``dq``: QK^T, dO V^T and dS K, 6; ``dkv``:
-    QK^T, dO V^T, P^T dO and dS^T Q, 8; ``bwd``, the whole backward as one
-    function: 10, the plain backward's five products) and, beside each, the same work
-    at the TF32 tensor-core peak (``*_tf32``), which only a TF32 redesign could
-    approach. Bytes: each input read once, each output written once, 4 per
-    element."""
+    """Bounds of the f32 kernels. The forward (``fwd``) runs its two products
+    as 3xTF32 on the tensor cores: 3 x 4 B*H*Sq*Sk*d FLOPs at the TF32 peak,
+    or its bytes with the split copies (q, k, v read; the split pass's hi and
+    lo of K and V^T, ``tile_keys`` rows of each tile, written and read back;
+    O and LSE written), whichever is larger; ``fwd_fp32``: the same products
+    at the CUDA cores' FP32 peak (4 B*H*Sq*Sk*d, the inputs and outputs
+    alone), the bound of an FMA forward; ``split``: the split pass's bytes.
+    The backward kernels run on the CUDA cores (``dq``: QK^T, dO V^T and dS
+    K, 6; ``dkv``: QK^T, dO V^T, P^T dO and dS^T Q, 8; ``bwd``, the whole
+    backward as one function: 10, the plain backward's five products) and,
+    beside each, the same work at the TF32 tensor-core peak (``*_tf32``).
+    Bytes: each input read once, each output written once, 4 per element."""
+    from pnpinversion_tpu_torch.ops.flash_attention import fwd_f32_tile_keys
+
     bh, mn = b * h, b * h * sq * sk * d
     q_b, kv_b, stat_b = 4.0 * bh * sq * d, 4.0 * bh * sk * d, 4.0 * bh * sq
-    work = {"fwd": (4.0 * mn, q_b + 2 * kv_b + q_b + stat_b),
-            "dq": (6.0 * mn, 2 * q_b + 2 * kv_b + 2 * stat_b + q_b),
-            "dkv": (8.0 * mn, 2 * q_b + 2 * kv_b + 2 * stat_b + 2 * kv_b),
-            "bwd": (10.0 * mn, 3 * q_b + 2 * kv_b + stat_b + q_b + 2 * kv_b)}
+    kt = fwd_f32_tile_keys(d)
+    split_b = 16.0 * bh * (-(-sk // kt) * kt) * d  # hi and lo of K and V^T
     out = {}
-    for name, (flops, nbytes) in work.items():
-        t_bytes = nbytes / H100_BYTES_PER_S
+    for name, flops, peak, nbytes in (
+            ("fwd", 12.0 * mn, H100_TF32_FLOPS, q_b + 2 * kv_b + 2 * split_b + q_b + stat_b),
+            ("fwd_fp32", 4.0 * mn, H100_F32_FLOPS, q_b + 2 * kv_b + q_b + stat_b),
+            ("split", 0.0, H100_TF32_FLOPS, 2 * kv_b + split_b)):
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = _bound(flops, peak, nbytes)
+    for name, flops, nbytes in (
+            ("dq", 6.0 * mn, 2 * q_b + 2 * kv_b + 2 * stat_b + q_b),
+            ("dkv", 8.0 * mn, 2 * q_b + 2 * kv_b + 2 * stat_b + 2 * kv_b),
+            ("bwd", 10.0 * mn, 3 * q_b + 2 * kv_b + stat_b + q_b + 2 * kv_b)):
         for suffix, peak in (("", H100_F32_FLOPS), ("_tf32", H100_TF32_FLOPS)):
-            t_ops = flops / peak
-            out[f"{name}{suffix}_bound_ms"] = max(t_ops, t_bytes) * 1e3
-            out[f"{name}{suffix}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            out[f"{name}{suffix}_bound_ms"], out[f"{name}{suffix}_bound_by"] = _bound(
+                flops, peak, nbytes)
     return out
 
 
@@ -497,51 +515,114 @@ def _rel(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
+def _same(a: tuple, b: tuple) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def f32_batch_independence() -> list:
+    """The f32 forward at 64^2 and 32^2: the heads of batch row 3 of a B*H 64
+    call (8 rows) against a B*H 8 call on that row alone, O and LSE bit for
+    bit (the grid and, at 64^2, nothing else differ), and a B*H 8 call at
+    both tiles of query rows where d allows two. Fails on a difference."""
+    from pnpinversion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for size, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80)):
+        q, k, v = (_heads(gen, 8, 8, s, d, True, torch.float32) for _ in range(3))
+        scale = d ** -0.5
+        big = fa.flash_attention_fwd(q, k, v, scale)
+        one = [x[3:4] for x in (q, k, v)]
+        small = fa.flash_attention_fwd(*one, scale)
+        row = {"size": size, "tile_rows_bh64": fa.fwd_f32_tile_rows(64, s, d, sms),
+               "tile_rows_bh8": fa.fwd_f32_tile_rows(8, s, d, sms),
+               "row_of_bh64_equals_bh8": _same((big[0][3:4], big[1][3:4]), small)}
+        row["ok"] = row["row_of_bh64_equals_bh8"]
+        if d <= fa.F32_WIDE_TILE_MAX_D:  # both tiles of query rows exist
+            rows64, rows128 = (fa._launch_fwd_f32(*one, scale, r) for r in (64, 128))
+            row["rows64_equals_rows128"] = _same(rows64, rows128)
+            row["ok"] &= row["rows64_equals_rows128"]
+        print("flash_f32_batch_independence", json.dumps(row), flush=True)
+        if not row["ok"]:
+            raise AssertionError(f"the f32 forward's rows depend on the batch or the tile: {row}")
+        out.append(row)
+        del q, k, v, big, small, one
+    return out
+
+
 def f32_kernel_phase(timing: bool = True) -> dict:
     """The f32 kernels (forward, dQ, dK/dV) vs their plain versions at every
     f32 case, TF32 off on both sides: O within ``F32_O_RTOL`` of max |plain|,
-    LSE within ``F32_LSE_ATOL``, dQ/dK/dV within ``F32_BWD_RTOL`` of max
-    |plain|, and the backward bit-identical run to run (no atomics). Times at
-    the timed cases (none with ``timing=False``): each kernel, its plain
-    version and f32 SDPA (forward, and backward on a graph built once), a
-    yardstick only."""
+    LSE within ``F32_LSE_ATOL``, the forward's split pass bit for bit against
+    its plain version, the forward repeated bit for bit, dQ/dK/dV within
+    ``F32_BWD_RTOL`` of max |plain|, and the backward bit-identical run to
+    run (no atomics); then ``f32_batch_independence``. Each forward row
+    names its tile and the memory one call adds (O, LSE and the split
+    scratch). Times at the timed cases (none with ``timing=False``): each
+    kernel (the forward whole, and its split pass alone), its plain version
+    and f32 SDPA (forward, and backward on a graph built once), a yardstick
+    only."""
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("the f32 kernels' oracle runs with TF32 off")
     gen = torch.Generator(device="cuda").manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     fwd_rows, bwd_rows = [], []
-    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst = {"o": 0.0, "lse": 0.0, "split": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
     for name, b, h, sq, sk, d, strided, timed, dtype in FLASH_CASES:
         if dtype != "f32":
             continue
         timed = timed and timing
         q, k, v = (_heads(gen, b, h, s, d, strided, torch.float32) for s in (sq, sk, sk))
         scale = d ** -0.5
+        split = fa.flash_attention_fwd_f32_split(k, v)
+        split_ref = fa.flash_attention_fwd_f32_split_reference(k, v)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, scale)
-        row = {"case": name, "shape": [b, h, sq, sk, d], "rel_err_o": _rel(o, o_ref),
+        tile = fa.fwd_f32_tile_rows(b * h, sq, d, sms)
+        row = {"case": name, "shape": [b, h, sq, sk, d], "tile_rows": tile,
+               "tile_keys": fa.fwd_f32_tile_keys(d), "smem_bytes": fa.fwd_f32_smem_bytes(tile, d),
+               "call_peak_mib": peak / 2**20, "rel_err_o": _rel(o, o_ref),
                "max_abs_err_o": (o - o_ref).abs().max().item(),
-               "max_abs_err_lse": (lse - lse_ref).abs().max().item()}
-        row["ok"] = row["rel_err_o"] <= F32_O_RTOL and row["max_abs_err_lse"] <= F32_LSE_ATOL
+               "max_abs_err_lse": (lse - lse_ref).abs().max().item(),
+               "repeat_bit_identical": _same(fa.flash_attention_fwd(q, k, v, scale), (o, lse)),
+               "split_max_abs_err": (split - split_ref).abs().max().item(),
+               "split_bit_identical": torch.equal(split, split_ref)}
+        row["ok"] = (row["rel_err_o"] <= F32_O_RTOL and row["max_abs_err_lse"] <= F32_LSE_ATOL
+                     and row["repeat_bit_identical"] and row["split_bit_identical"])
         worst["o"] = max(worst["o"], row["max_abs_err_o"])
         worst["lse"] = max(worst["lse"], row["max_abs_err_lse"])
+        worst["split"] = max(worst["split"], row["split_max_abs_err"])
+        del split, split_ref
         if timed:
             qc, kc, vc = (x.contiguous() for x in (q, k, v))
             row.update(time_interleaved({
                 "ms": lambda: fa.flash_attention_fwd(q, k, v, scale),
+                "split_ms": lambda: fa.flash_attention_fwd_f32_split(k, v),
                 "plain_ms": lambda: fa.flash_attention_reference(q, k, v, scale),
+                "split_plain_ms": lambda: fa.flash_attention_fwd_f32_split_reference(k, v),
                 "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
                     qc, kc, vc, scale=scale)}))
             bounds = f32_flash_bounds(b, h, sq, sk, d)
             row.update(bound_ms=bounds["fwd_bound_ms"], bound_by=bounds["fwd_bound_by"],
-                       tf32_bound_ms=bounds["fwd_tf32_bound_ms"])
+                       fp32_bound_ms=bounds["fwd_fp32_bound_ms"],
+                       split_bound_ms=bounds["split_bound_ms"],
+                       split_share=row["split_ms"] / row["ms"],
+                       over_library=row["ms"] / row["library_ms"],
+                       share_of_bound=bounds["fwd_bound_ms"] / row["ms"])
         print("flash_f32", json.dumps(row), flush=True)
         if not row["ok"]:
             raise AssertionError(f"f32 flash kernel disagrees with its plain version: {row}")
         fwd_rows.append(row)
         del q, k, v, o, lse, o_ref, lse_ref
+    independence = f32_batch_independence()
     for name, b, h, sq, sk, d, strided, timed, dtype in FLASH_BWD_CASES:
         if dtype != "f32":
             continue
@@ -592,7 +673,8 @@ def f32_kernel_phase(timing: bool = True) -> dict:
         bwd_rows.append(row)
         del q, k, v, do, out, lse, delta, dq, dk, dv, want
     torch.cuda.empty_cache()
-    return {"fwd_rows": fwd_rows, "bwd_rows": bwd_rows, "max_abs_err": worst}
+    return {"fwd_rows": fwd_rows, "bwd_rows": bwd_rows, "max_abs_err": worst,
+            "batch_independence": independence}
 
 
 def _sync_time(fn):
@@ -642,6 +724,7 @@ def _f32_counts() -> dict:
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
     return {"fwd": fa.flash_attention_fwd_f32.launches,
+            "split": fa.flash_attention_fwd_f32_split.launches,
             "dq": fa.flash_attention_bwd_dq_f32.launches,
             "dkv": fa.flash_attention_bwd_dkv_f32.launches}
 
@@ -870,10 +953,11 @@ def _check_launches(name: str, counts: dict, calls_per_step: int, steps: int,
 
 def _check_f32_launches(name: str, calls: int) -> dict:
     """Check an f32 path's launches since ``_reset_counts`` against the
-    code's own count: the f32 forward once per flash site per UNet call, no
-    backward, and no bf16 kernel. Returns the f32 counts."""
+    code's own count: the f32 forward (its split pass and main kernel) once
+    per flash site per UNet call, no backward, and no bf16 kernel. Returns
+    the f32 counts."""
     counts, bf16 = _f32_counts(), _counts()
-    want = {"fwd": FLASH_SITES * calls, "dq": 0, "dkv": 0}
+    want = {"fwd": FLASH_SITES * calls, "split": FLASH_SITES * calls, "dq": 0, "dkv": 0}
     if counts != want or any(bf16.values()):
         raise AssertionError(f"{name}: f32 launches {counts} (bf16 kernels {bf16}), want "
                              f"{want} and no bf16 kernel ({calls} UNet calls)")
@@ -1541,8 +1625,9 @@ def _device_trace(fn) -> tuple:
 
 def edict_trace(pipe, image: np.ndarray, pair) -> dict:
     """One ``edict+p2p`` edit (float64 carry) at ``EDICT_TRACE_STEPS`` under
-    torch.profiler: the f32 forward's (``flash_fwd_f32_kernel``) device
-    seconds and launches in the trace, their share of the same edit's wall
+    torch.profiler: the f32 forward's device seconds (its main kernel
+    ``flash_fwd_f32_kernel`` and its split pass ``flash_fwd_f32_split_kernel``)
+    and launches in the trace, their share of the same edit's wall
     time run without the profiler, and their share of the sum of every
     kernel's traced time (that sum exceeded the wall time on the H100: it
     is no busy time, and no idle share is derived from it). The edit makes
@@ -1555,15 +1640,19 @@ def edict_trace(pipe, image: np.ndarray, pair) -> dict:
     _, t_plain = _sync_time(lambda: editor("edict+p2p", image, *pair))
     wall, us, n = _device_trace(lambda: editor("edict+p2p", image, *pair))
     kernel_sum = sum(us.values()) / 1e6
+    split = sum(v for k, v in us.items() if "flash_fwd_f32_split" in k) / 1e6
     attn = sum(v for k, v in us.items() if "flash_fwd_f32" in k) / 1e6
-    launches = sum(v for k, v in n.items() if "flash_fwd_f32" in k)
+    launches = sum(v for k, v in n.items() if "flash_fwd_f32_kernel" in k)
+    split_launches = sum(v for k, v in n.items() if "flash_fwd_f32_split" in k)
     calls = edict_unet_calls(EDICT_TRACE_STEPS)
-    if launches != FLASH_SITES * calls:
+    if not launches == split_launches == FLASH_SITES * calls:
         raise AssertionError(f"the traced edict+p2p edit launched the f32 forward {launches} "
-                             f"times, expected {FLASH_SITES * calls}")
+                             f"times and its split pass {split_launches}, expected "
+                             f"{FLASH_SITES * calls} each")
     return {"steps": EDICT_TRACE_STEPS, "unet_calls": calls, "edit_s": t_plain,
             "traced_edit_s": wall, "kernel_time_sum_s": kernel_sum,
-            "f32_attention_device_s": attn, "f32_attention_launches": launches,
+            "f32_attention_device_s": attn, "f32_split_device_s": split,
+            "f32_attention_launches": launches,
             "f32_attention_ms_per_launch": attn * 1e3 / launches,
             "f32_attention_share_of_edit": attn / t_plain,
             "f32_attention_share_of_kernel_time_sum": attn / kernel_sum,
@@ -1826,7 +1915,7 @@ def f32_path_phase() -> dict:
         inner = counts["dq"] // BWD_SITES
         calls = 2 * steps if method == "directinversion+p2p" else 5 * steps + inner
         ok = (bf16 == no_bf16 and counts["dq"] == counts["dkv"] == BWD_SITES * inner
-              and counts["fwd"] == FLASH_SITES * calls
+              and counts["fwd"] == counts["split"] == FLASH_SITES * calls
               and (steps <= inner <= NULL_TEXT_INNER * steps if method == NULL_TEXT
                    else inner == 0))
         if not ok:
@@ -2012,14 +2101,17 @@ def eval_phase(batch_out: dict, calc=None) -> dict:
 
 BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
 F32_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_f32.cu"
+F32_FWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_fwd_f32.cu"
 TPU_FLASH = "pnpinversion_tpu/ops/flash_attention.py"
 
 
 def _f32_entries(f32: dict, f32_path: dict, fwd_by_path: dict) -> list:
-    """The f32 kernels' entries of the kernels line: the forward at the f32
-    DirectInversion scan's 64^2 shape (3 rows) with its launches in the f32
-    directinversion+p2p edit (and, by path, in the f32 families of the bf16
-    pipeline: ``fwd_by_path``), the dQ and dK/dV kernels at the f32 null-text
+    """The f32 kernels' entries of the kernels line: the forward (its ``ms``
+    covers both of its launches, the split pass and the main kernel) and its
+    split pass at the f32 DirectInversion scan's 64^2 shape (3 rows) with
+    their launches in the f32 directinversion+p2p edit (and, by path, in the
+    f32 families of the bf16 pipeline: ``fwd_by_path``; the split pass runs
+    once per forward on every path), the dQ and dK/dV kernels at the f32 null-text
     inner loop's 64^2 shape with their launches in the f32 null-text edit.
     SDPA's backward computes dQ, dK and dV together, so the dK/dV entry's
     times are the whole f32 backward's (delta, dQ, dK/dV), like with like,
@@ -2032,13 +2124,19 @@ def _f32_entries(f32: dict, f32_path: dict, fwd_by_path: dict) -> list:
                        **fwd_by_path},
                "bwd": {f"f32 {NULL_TEXT}": nt["dq"]}}
     common = {"route": "cuda", "source": F32_SOURCE}
+    fwd_common = {"route": "cuda", "source": F32_FWD_SOURCE, "replaces": f"{TPU_FLASH}:60",
+                  "launches_by_path": by_path["fwd"], "shape": fwd["shape"]}
     return [
-        {"name": "flash_attention_fwd_f32", **common, "replaces": f"{TPU_FLASH}:60",
-         "launches": di["fwd"], "launches_by_path": by_path["fwd"],
+        {"name": "flash_attention_fwd_f32", **fwd_common, "launches": di["fwd"],
          "max_abs_err": max(err["o"], err["lse"]), "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-         "library_ms": fwd["library_ms"], "tf32_bound_ms": fwd["tf32_bound_ms"],
-         "shape": fwd["shape"], "per_case": f32["fwd_rows"]},
+         "library_ms": fwd["library_ms"], "fp32_bound_ms": fwd["fp32_bound_ms"],
+         "split_ms": fwd["split_ms"], "ms_covers": "the split pass and the main kernel",
+         "batch_independence": f32["batch_independence"], "per_case": f32["fwd_rows"]},
+        {"name": "flash_attention_fwd_f32_split", **fwd_common, "launches": di["split"],
+         "max_abs_err": err["split"], "ms": fwd["split_ms"], "plain_ms": fwd["split_plain_ms"],
+         "bound_ms": fwd["split_bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "part_of": "flash_attention_fwd_f32 (checked bit for bit at every f32 case)"},
         {"name": "flash_attention_bwd_dq_f32", **common, "replaces": f"{TPU_FLASH}:99",
          "launches": nt["dq"], "launches_by_path": by_path["bwd"], "max_abs_err": err["dq"],
          "ms": bwd["dq_ms"], "plain_ms": bwd["plain_dq_ms"], "bound_ms": bwd["dq_bound_ms"],
@@ -2096,7 +2194,8 @@ def main() -> int:
         return 1
     from pnpinversion_tpu_torch.configs import SD14
     from pnpinversion_tpu_torch.ops import build
-    from pnpinversion_tpu_torch.ops.flash_attention import BWD_KERNEL, F32_KERNEL, KERNEL
+    from pnpinversion_tpu_torch.ops.flash_attention import (BWD_KERNEL, F32_FWD_KERNEL,
+                                                            F32_KERNEL, KERNEL)
     from pnpinversion_tpu_torch.pipeline import SDPipeline
 
     t_start = time.perf_counter()
@@ -2108,9 +2207,9 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    build_s = build.build([KERNEL, BWD_KERNEL, F32_KERNEL])
+    build_s = build.build([KERNEL, BWD_KERNEL, F32_KERNEL, F32_FWD_KERNEL])
     print(f"build: {json.dumps(build_s)} total {time.perf_counter() - t0:.1f}s", flush=True)
-    for name in (KERNEL, BWD_KERNEL, F32_KERNEL):
+    for name in (KERNEL, BWD_KERNEL, F32_KERNEL, F32_FWD_KERNEL):
         summary = ptxas_summary(build.build_log(name))
         print(f"ptxas {name}.cu:", *summary, sep="\n  ", flush=True)
         lost = [line for line in summary if re.search(

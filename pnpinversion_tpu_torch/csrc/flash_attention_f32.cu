@@ -1,11 +1,9 @@
-// Flash attention in f32 for Hopper (sm_90a): the forward and the two halves of
-// the backward, on the CUDA cores, for the pipelines that run in f32.
+// Flash attention in f32 for Hopper (sm_90a): the two halves of the backward,
+// on the CUDA cores, for the pipelines that run in f32 (the f32 forward is
+// flash_attention_fwd_f32.cu).
 //
 // Replaces the TPU kernels of pnpinversion_tpu/ops/flash_attention.py on f32
 // inputs, which those kernels take in their storage type:
-// - flash_fwd_f32_kernel: _flash_kernel. O = softmax(scale * Q K^T) V by online
-//   softmax over key tiles, running max, sum and O in f32, and the row
-//   log-sum-exp m + log(l).
 // - flash_bwd_dq_f32_kernel: _flash_bwd_dq_kernel. dQ = scale * dS K with
 //   P = exp(scale * Q K^T - LSE) recomputed and dS = P * (dO V^T - delta).
 // - flash_bwd_dkv_f32_kernel: _flash_bwd_dkv_kernel. dK = scale * dS^T Q,
@@ -15,14 +13,14 @@
 //
 // What bounds them on an H100. Every product keeps f32 precision, so they run
 // as FMAs on the CUDA cores: 67 TFLOP/s, against 495 for TF32 wgmma, which
-// keeps about three decimal digits and would miss the f32 tolerance. At the SD1.4
-// sites (B*H = 8, S = 4096, d = 40) the forward's 21 GFLOP take 0.32 ms at that
-// peak, against 0.01 ms to move its 21 MB: operations bound it, with the
-// Sq*Sk exponentials on the SFUs besides.
+// keeps about three decimal digits and would miss the f32 tolerance. At the
+// SD1.4 sites (B*H = 8, S = 4096, d = 40) dQ's three products (32 GFLOP) take
+// 0.48 ms at that peak, against 0.01 ms to move its 26 MB: operations bound
+// them, with the Sq*Sk exponentials on the SFUs besides.
 //
 // What the design does about it. It is the simple, right one: no tensor
 // cores, no atomics, so both backward kernels give the same bits every run.
-// - A CTA owns 64 rows (queries in the forward and dQ, keys in dK/dV) of one
+// - A CTA owns 64 rows (queries in dQ, keys in dK/dV) of one
 //   (batch, head) and walks every tile of 64 of the other side. 256 threads:
 //   four per row, each taking 16 of the tile's 64 columns of the scores
 //   (columns t, t+4, ...), so a row's statistics reduce over four lanes of a
@@ -41,9 +39,8 @@
 // - Ragged edges: rows past the sequence are zero-filled by cp.async; keys
 //   past Sk get probability 0, rows past Sq are not stored.
 //
-// Not done (later work): TF32 or 3xTF32 wgmma (the first misses f32's
-// tolerance, the second would keep it at about 3x TF32's cost), larger tiles
-// per thread.
+// Not done (later work): 3xTF32 wgmma, as the f32 forward runs its products
+// (TF32 alone misses f32's tolerance), larger tiles per thread.
 
 #include "hopper_common.cuh"
 #include <math.h>
@@ -102,33 +99,10 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// s[i] += own . tile[4 i + t] and, with two rows and two tiles, also
-// s2[i] += own2 . tile2[4 i + t]: the scores of this thread's 16 columns over
-// the d4 16-byte chunks of a row.
-// (The loops over the d4 chunks and over the 4 lanes of a row stay rolled:
-// fully unrolled, ptxas hoisted so many loads that registers spilled, and
-// the build took minutes.)
-__device__ __forceinline__ void scores(float (&s)[kPer], const float* own, const float* tile,
-                                       int t, int d) {
-  const int d4 = d / 4, pitch = d + 4;
-#pragma unroll 1
-  for (int c = 0; c < d4; ++c) {
-    const float4 a = ld4(own + 4 * c);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) s[i] = dot4(a, ld4(tile + (4 * i + t) * pitch + 4 * c), s[i]);
-  }
-}
-
+// s[i] += own . tile[4 i + t] and s2[i] += own2 . tile2[4 i + t]: the scores
+// of this thread's 16 columns over the d4 16-byte chunks of a row.
+// (The loop over the d4 chunks stays rolled: fully unrolled, ptxas hoisted
+// so many loads that registers spilled, and the build took minutes.)
 __device__ __forceinline__ void scores2(float (&s)[kPer], float (&s2)[kPer], const float* own,
                                         const float* tile, const float* own2, const float* tile2,
                                         int t, int d) {
@@ -204,84 +178,6 @@ struct Out {
   int64_t sb, sh, ss;
   __device__ float* at(int b, int h) const { return p + b * sb + h * sh; }
 };
-
-struct FwdParams {
-  Strided q, k, v;
-  Out o;
-  float* lse;  // (batch * heads, sq)
-  int heads, sq, sk, d;
-  float scale_log2;  // scale * log2(e)
-};
-
-// One CTA per (64 queries, batch * head); smem: Q, then two stages of K and V.
-template <int NCH>
-__global__ void __launch_bounds__(kThreads, NCH <= 5 ? 2 : 1)
-    flash_fwd_f32_kernel(const FwdParams p) {
-  extern __shared__ __align__(16) float smem[];
-  const int pitch = p.d + 4, tile = kTile * pitch;
-  float* s_q = smem;
-  float* s_k = smem + tile;  // stage s: K at s_k + 2 s tile, V at s_k + (2 s + 1) tile
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh - b * p.heads;
-  const int q0 = blockIdx.x * kRows, r = threadIdx.x / kTPR, t = threadIdx.x % kTPR;
-  const float *kb = p.k.at(b, h), *vb = p.v.at(b, h);
-  load_tile(s_q, p.q.at(b, h), p.q.ss, q0, p.sq, p.d);
-  load_tile(s_k, kb, p.k.ss, 0, p.sk, p.d);
-  load_tile(s_k + tile, vb, p.v.ss, 0, p.sk, p.d);
-  cp_commit();
-
-  float m = -INFINITY, l = 0.f;
-  float4 o[NCH];
-  zero(o);
-  const int n_tiles = (p.sk + kTile - 1) / kTile;
-  for (int j = 0; j < n_tiles; ++j) {
-    float* ks = s_k + 2 * (j & 1) * tile;
-    if (j + 1 < n_tiles) {
-      float* next = s_k + 2 * ((j + 1) & 1) * tile;
-      load_tile(next, kb, p.k.ss, (j + 1) * kTile, p.sk, p.d);
-      load_tile(next + tile, vb, p.v.ss, (j + 1) * kTile, p.sk, p.d);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    float s[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) s[i] = 0.f;
-    scores(s, s_q + r * pitch, ks, t, p.d);
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      s[i] = j * kTile + 4 * i + t < p.sk ? s[i] * p.scale_log2 : -INFINITY;
-      mx = fmaxf(mx, s[i]);
-    }
-    // every tile holds a key below sk, so m_new is finite from the first on
-    const float m_new = fmaxf(m, row_max(mx));
-    const float alpha = exp2f(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int n = 0; n < NCH; ++n) {
-      o[n].x *= alpha;
-      o[n].y *= alpha;
-      o[n].z *= alpha;
-      o[n].w *= alpha;
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      s[i] = exp2f(s[i] - m_new);
-      l += s[i];
-    }
-    m = m_new;
-    accumulate<NCH>(o, s, ks + tile, t, p.d);
-    __syncthreads();  // the stage is refilled next iteration
-  }
-  l = row_sum(l);
-  const int row = q0 + r;
-  if (row < p.sq) {
-    store_row<NCH>(p.o.at(b, h) + row * p.o.ss, o, 1.f / l, t, p.d);
-    if (t == 0) p.lse[static_cast<int64_t>(bh) * p.sq + row] = (m + log2f(l)) * kLn2;
-  }
-}
 
 struct BwdParams {
   Strided q, k, v, dout;
@@ -411,22 +307,11 @@ __global__ void __launch_bounds__(kThreads, NCH <= 1 ? 2 : 1)
   }
 }
 
-int fwd_smem(int d) { return 5 * kTile * (d + 4) * 4; }
 int dq_smem(int d) { return 6 * kTile * (d + 4) * 4; }
 int dkv_smem(int d) { return 6 * kTile * (d + 4) * 4 + 4 * kTile * 4; }
 
 // NCH = ceil(d / 16) 16-byte chunks of a row per thread; the shared-memory
 // limit is raised once per instantiation and device, for its largest d.
-template <int NCH>
-cudaError_t launch_fwd(const FwdParams& p, int bh, cudaStream_t stream) {
-  static std::atomic<uint64_t> raised{0};
-  cudaError_t err = raise_smem_once(raised, flash_fwd_f32_kernel<NCH>, fwd_smem(16 * NCH));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + kRows - 1) / kRows, bh);
-  flash_fwd_f32_kernel<NCH><<<grid, kThreads, fwd_smem(p.d), stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int NCH>
 cudaError_t launch_dq(const BwdParams& p, int bh, cudaStream_t stream) {
   static std::atomic<uint64_t> raised{0};
@@ -472,21 +357,6 @@ bool takes(int batch, int heads, int sq, int sk, int d) {
 // elements and the pointers 16-byte aligned. lse and delta are contiguous
 // (batch * heads, sq) f32 buffers. Returns a cudaError_t (0 on success);
 // shapes it does not take return cudaErrorInvalidValue without launching.
-extern "C" int pnpi_flash_attention_fwd_f32(
-    const void* q, const void* k, const void* v, void* o, void* lse, int64_t q_sb, int64_t q_sh,
-    int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
-    int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, int batch, int heads, int sq, int sk,
-    int d, float scale, void* stream) {
-  if (!takes(batch, heads, sq, sk, d)) return (int)cudaErrorInvalidValue;
-  const FwdParams p{{static_cast<const float*>(q), q_sb, q_sh, q_ss},
-                    {static_cast<const float*>(k), k_sb, k_sh, k_ss},
-                    {static_cast<const float*>(v), v_sb, v_sh, v_ss},
-                    {static_cast<float*>(o), o_sb, o_sh, o_ss},
-                    static_cast<float*>(lse), heads, sq, sk, d, scale * kLog2e};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PNPI_BY_CHUNKS(launch_fwd, p, batch * heads, st)
-}
-
 // dQ (dq_only != 0) or dK and dV of the backward, from the forward's LSE and
 // delta = rowsum(dO * O).
 extern "C" int pnpi_flash_attention_bwd_f32(

@@ -7,9 +7,12 @@ which run in the inputs' storage dtype, bf16 or f32. For bf16,
 ``csrc/flash_attention_fwd.cu`` replaces ``_flash_kernel``, and
 ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel`` with one pass over the scores (a prep kernel, the
-main kernel, a dQ convert kernel). For f32, ``csrc/flash_attention_f32.cu``
-replaces all three one for one (a forward, a dQ and a dK/dV kernel). Each
-header says what bounds it on an H100 and what the design does about that.
+main kernel, a dQ convert kernel). For f32, ``csrc/flash_attention_fwd_f32.cu``
+replaces ``_flash_kernel`` (a split pass that writes the hi and lo TF32
+halves of K and V^T, and a 3xTF32 wgmma kernel), and
+``csrc/flash_attention_f32.cu`` replaces the two backward kernels one for one
+(a dQ and a dK/dV kernel). Each header says what bounds it on an H100 and
+what the design does about that.
 Layout is the JAX package's: q (B, H, Sq, D), k/v (B, H, Sk, D); the forward
 returns O in the input dtype and the row log-sum-exp LSE (B, H, Sq) in f32,
 which the backward reads.
@@ -33,6 +36,15 @@ from pnpinversion_tpu_torch.ops import build
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
 F32_KERNEL = "flash_attention_f32"
+F32_FWD_KERNEL = "flash_attention_fwd_f32"
+# V^T's order of the keys in each group of 8 in the f32 forward: slot s holds
+# key F32_KEY_PERM[s], so that P's accumulator registers (keys 2t and 2t + 1
+# of a thread) are the TF32 A fragment (slots t and t + 4) as they stand
+F32_KEY_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+# the f32 forward's 128-row tiles (two consumer warpgroups and a producer
+# warp: 168 registers a thread) exist up to this head dim; past it ptxas
+# spills (d = 64) or the Q tile and two stages outgrow shared memory (d = 80)
+F32_WIDE_TILE_MAX_D = 56
 MAX_HEAD_DIM = 128
 BWD_BLOCK_Q = 64  # query rows per tile of the backward's stats and dQ accumulator
 LOG2E = math.log2(math.e)
@@ -54,6 +66,15 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs.to(v.dtype), v)
     return out.to(q.dtype), lse
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of f32 ``x``: hi is x rounded to TF32 (to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``) with its low 13 mantissa bits zero, and
+    lo = x - hi, exact in f32. hi * y_hi + hi * y_lo + lo * y_hi is the 3xTF32
+    product, which drops only lo * y_lo (about 2^-22 of |x y|)."""
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
 
 
 def _probs_and_ds(q, k, v, lse, do, delta, scale):
@@ -211,6 +232,22 @@ def fwd_tile_rows(bh: int, sq: int, sms: int) -> int:
     two 64-row CTAs would fit (d <= 64): on the H100 two of them were slower
     than one 128-row CTA at every 64x64 site (1.1x)."""
     return _tile_by_waves(bh, sq, sms)
+
+
+def fwd_f32_tile_keys(d: int) -> int:
+    """Keys per shared-memory stage of the f32 forward: 64, or 32 past d = 88,
+    where two stages of 64 keys (K and V^T, hi and lo) and one 64-row Q tile
+    (hi and lo) would not fit in 227 KB. A function of d alone: the tile
+    bounds the order of a row's sums, so a row's result must not depend on
+    the batch or the rows per CTA."""
+    return 64 if d <= 88 else 32
+
+
+def fwd_f32_tile_rows(bh: int, sq: int, d: int, sms: int) -> int:
+    """Query rows per CTA of the f32 forward: 128 (two consumer warpgroups
+    sharing each K/V stage, so each stage is loaded once for twice the rows)
+    or 64, by waves as ``fwd_tile_rows``; 64 past ``F32_WIDE_TILE_MAX_D``."""
+    return 64 if d > F32_WIDE_TILE_MAX_D else _tile_by_waves(bh, sq, sms)
 
 
 def bwd_tile_keys(bh: int, sk: int, sms: int) -> int:
@@ -469,31 +506,102 @@ def flash_attention_bwd(q, k, v, out, lse, do, scale):
 
 @functools.lru_cache(maxsize=None)
 def _f32_kernels() -> types.SimpleNamespace:
-    """The C entries of ``csrc/flash_attention_f32.cu``: the forward, and the
-    backward that runs the dQ or the dK/dV kernel."""
-    lib = build.load(F32_KERNEL)
+    """The C entries of ``csrc/flash_attention_f32.cu`` (the backward that
+    runs the dQ or the dK/dV kernel) and ``csrc/flash_attention_fwd_f32.cu``
+    (the forward's split pass and main kernel)."""
+    lib, fwd = build.load(F32_KERNEL), build.load(F32_FWD_KERNEL)
     ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    fns = types.SimpleNamespace(fwd=lib.pnpi_flash_attention_fwd_f32,
+    fns = types.SimpleNamespace(split=fwd.pnpi_flash_attention_fwd_f32_split,
+                                fwd=fwd.pnpi_flash_attention_fwd_f32,
                                 bwd=lib.pnpi_flash_attention_bwd_f32)
-    fns.fwd.argtypes = [ptr] * 5 + [i64] * 12 + [i32] * 5 + [f32, ptr]
+    fns.split.argtypes = [ptr] * 3 + [i64] * 6 + [i32] * 5 + [ptr]
+    fns.fwd.argtypes = [ptr] * 4 + [i64] * 6 + [i32] * 6 + [f32, ptr]
     fns.bwd.argtypes = [ptr] * 9 + [i64] * 21 + [i32] * 5 + [f32, i32, ptr]
     for fn in vars(fns).values():
         fn.restype = ctypes.c_int
     return fns
 
 
-def _launch_fwd_f32(q, k, v, scale: float):
-    """One launch of the f32 forward kernel on inputs ``_check`` has passed."""
+def fwd_f32_smem_bytes(tile_rows: int, d: int) -> int:
+    """Dynamic shared memory of the f32 forward's instantiation for
+    (tile_rows, d), as the C side computes it (-1: none)."""
+    return build.load(F32_FWD_KERNEL).pnpi_flash_attention_fwd_f32_smem_bytes(tile_rows, d)
+
+
+def _core_matrices(x: torch.Tensor) -> torch.Tensor:
+    """(..., R, K) -> (..., R * K) in the wgmma core-matrix order of the f32
+    forward's tiles: 8x4 blocks of 32 contiguous values (8 rows of 4), row
+    groups outermost, then column groups."""
+    *lead, r, c = x.shape
+    x = x.reshape(*lead, r // 8, 8, c // 4, 4).transpose(-3, -2)
+    return x.reshape(*lead, r * c)
+
+
+def flash_attention_fwd_f32_split_reference(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32 forward's split pass: a (B*H, n, 4, KT * D)
+    f32 tensor, n = ceil(Sk / KT) tiles of KT = ``fwd_f32_tile_keys(D)`` keys
+    (zero past Sk), each K hi, K lo, V^T hi, V^T lo (``tf32_split``) in core-
+    matrix order; V^T's rows are head-dim columns, its keys in each group of 8
+    in ``F32_KEY_PERM`` order."""
+    b, h, sk, d = k.shape
+    kt = fwd_f32_tile_keys(d)
+    n = -(-sk // kt)
+
+    def tiles(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, n * kt - sk))
+        return x.reshape(b * h, n, kt, d)
+
+    # F32_KEY_PERM as views: slot 4 h + u of a group holds key 2 u + h (an
+    # index tensor would be a host-to-device copy that waits for the device)
+    vt = tiles(v).reshape(b * h, n, kt // 8, 4, 2, d).transpose(3, 4)
+    vt = vt.reshape(b * h, n, kt, d).transpose(-1, -2)
+    out = []
+    for x in (tiles(k), vt):
+        out.extend(tf32_split(_core_matrices(x.contiguous())))
+    return torch.stack(out, dim=2)
+
+
+def _launch_split_f32(k, v):
+    """One launch of the f32 forward's split pass on checked inputs."""
+    b, h, sk, d = k.shape
+    kt = fwd_f32_tile_keys(d)
+    out = torch.empty((b * h, -(-sk // kt), 4, kt * d), dtype=torch.float32, device=k.device)
+    _raise_on(_f32_kernels().split(k.data_ptr(), v.data_ptr(), out.data_ptr(), *k.stride()[:3],
+                                   *v.stride()[:3], b, h, sk, d, kt, _stream(k)),
+              "f32 split", k)
+    flash_attention_fwd_f32_split.launches += 1
+    return out
+
+
+def flash_attention_fwd_f32_split(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The f32 forward's split pass alone (``flash_attention_fwd_f32`` runs
+    it before its main kernel): its plain version on CPU tensors."""
+    _no_grad_tracking("flash_attention_fwd_f32_split", k, v)
+    if k.device.type == "cpu":
+        return flash_attention_fwd_f32_split_reference(k, v)
+    _check(k, k, v, torch.float32)
+    return _launch_split_f32(k, v)
+
+
+flash_attention_fwd_f32_split.launches = 0
+
+
+def _launch_fwd_f32(q, k, v, scale: float, rows=None):
+    """One f32 forward on inputs ``_check`` has passed: the split pass, then
+    the main kernel with ``rows`` (64 or 128) query rows per CTA, or
+    ``fwd_f32_tile_rows``' choice where it is None."""
     b, h, sq, d = q.shape
+    if rows is None:
+        rows = fwd_f32_tile_rows(b * h, sq, d, _sm_count(q.device.index))
+    kv = _launch_split_f32(k, v)
     out = _heads_last(b, h, sq, d, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     err = _f32_kernels().fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        b, h, sq, k.shape[2], d, scale, _stream(q))
+        q.data_ptr(), kv.data_ptr(), out.data_ptr(), lse.data_ptr(), *q.stride()[:3],
+        *out.stride()[:3], b, h, sq, k.shape[2], d, rows, scale, _stream(q))
     if err != 0:
         raise RuntimeError(f"f32 flash kernel launch failed: cudaError {err} for q "
-                           f"{tuple(q.shape)}, k {tuple(k.shape)}")
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}, {rows} rows per CTA")
     return out, lse
 
 
@@ -516,10 +624,12 @@ def _launch_bwd_f32(q, k, v, do, lse, delta, scale: float, dq_only: bool):
 
 def flash_attention_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, LSE) of f32 q/k/v: the f32 forward kernel (FMAs in f32 on the CUDA
-    cores), its plain version on CPU tensors. Strided views as for
+    """(O, LSE) of f32 q/k/v: the f32 forward (its split pass, then 3xTF32
+    wgmma on the tensor cores, f32 accuracy whatever the process's TF32
+    flags), its plain version on CPU tensors. Strided views as for
     ``flash_attention_fwd``; O comes back as a (B, H, Sq, D) view of a (B, Sq,
-    H, D) buffer."""
+    H, D) buffer. Each call allocates the split pass's output, B*H x Sk x D x
+    16 bytes (the hi and lo of K and V^T)."""
     _no_grad_tracking("flash_attention_fwd_f32", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
@@ -567,8 +677,8 @@ def flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, scale):
 flash_attention_fwd_f32.launches = 0
 flash_attention_bwd_dq_f32.launches = 0
 flash_attention_bwd_dkv_f32.launches = 0
-F32_WRAPPERS = (flash_attention_fwd_f32, flash_attention_bwd_dq_f32,
-                flash_attention_bwd_dkv_f32)
+F32_WRAPPERS = (flash_attention_fwd_f32, flash_attention_fwd_f32_split,
+                flash_attention_bwd_dq_f32, flash_attention_bwd_dkv_f32)
 
 
 class FlashAttention(torch.autograd.Function):

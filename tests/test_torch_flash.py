@@ -270,11 +270,14 @@ def test_kernels_dispatch_by_dtype(monkeypatch, dtype, family):
     moved = {fn.__name__: fn.launches - n for fn, n in before.items()}
     if family == "f32":
         assert launched == ["f32 fwd", "f32 bwd", "f32 bwd"]
+        # the f32 forward's split pass counts in _launch_fwd_f32, stubbed here
         assert moved == {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 1,
+                         "flash_attention_fwd_f32_split": 0,
                          "flash_attention_bwd_dq_f32": 1, "flash_attention_bwd_dkv_f32": 1}
     else:
         assert launched == ["bf16 fwd", "bf16 prep", "bf16 main", "bf16 convert"]
         assert moved == {"flash_attention_fwd": 1, "flash_attention_fwd_f32": 0,
+                         "flash_attention_fwd_f32_split": 0,
                          "flash_attention_bwd_dq_f32": 0, "flash_attention_bwd_dkv_f32": 0}
 
 

@@ -268,9 +268,11 @@ def full_f32(cuda_device):
     (1, 4096, 4096, 40, True), (3, 1024, 1024, 80, True), (1, 1000, 77, 40, False),
     (2, 1000, 1000, 80, True), (1, 1024, 1024, 128, False), (2, 200, 330, 16, False)])
 def test_f32_kernels_match_plain_on_cuda(full_f32, b, sq, sk, d, strided):
-    """The f32 forward, dQ and dK/dV kernels against their plain versions in
-    full f32: O within 2e-5 of max |O|, LSE within 1e-5, the gradients within
-    1e-4 of their largest value, and the backward bit-identical run to run."""
+    """The f32 forward (split pass and 3xTF32 kernel), dQ and dK/dV kernels
+    against their plain versions in full f32: O within 2e-5 of max |O|, LSE
+    within 1e-5, the gradients within 1e-4 of their largest value, and the
+    backward bit-identical run to run. A V^T whose keys were stored out of
+    the order the PV product reads them (F32_KEY_PERM) fails here."""
     q, k, v, do = _f32_inputs(full_f32, b, sq, sk, d, strided)
     scale = d ** -0.5
     before = [fn.launches for fn in tflash.F32_WRAPPERS]
@@ -278,7 +280,7 @@ def test_f32_kernels_match_plain_on_cuda(full_f32, b, sq, sk, d, strided):
     grads = [tflash.flash_attention_bwd(q, k, v, out, lse, do, scale) for _ in range(2)]
     torch.cuda.synchronize()
     assert [fn.launches for fn in tflash.F32_WRAPPERS] == [n + m for n, m in zip(before,
-                                                                                 (1, 2, 2))]
+                                                                                 (1, 1, 2, 2))]
     want, lse_want = tflash.flash_attention_reference(q, k, v, scale)
     assert out.dtype == torch.float32
     assert ((out - want).abs().max() / want.abs().max()).item() <= 2e-5
@@ -327,6 +329,46 @@ def test_f32_forward_at_batched_shapes_on_cuda(full_f32, rows, sq, d):
     want, lse_want = tflash.flash_attention_reference(q, k, v, d ** -0.5)
     assert ((out - want).abs().max() / want.abs().max()).item() <= 2e-5
     assert (lse - lse_want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk,d", [(4096, 40), (1000, 80), (77, 40), (330, 128)])
+def test_f32_split_matches_plain_on_cuda(cuda_device, sk, d):
+    """The f32 forward's split pass (K and V^T, hi and lo, in tiles, zero past
+    Sk) against its plain version, bit for bit."""
+    _, k, v, _ = _f32_inputs(cuda_device, 2, 1, sk, d, True)
+    got = tflash.flash_attention_fwd_f32_split(k, v)
+    assert torch.equal(got, tflash.flash_attention_fwd_f32_split_reference(k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,d", [(4096, 40), (1024, 80)])
+def test_f32_forward_repeats_and_is_batch_independent_on_cuda(full_f32, sq, d):
+    """The f32 forward repeats bit for bit; batch row 3 of an 8-row call (B.H
+    64) equals a call on that row alone (B.H 8), and, where d allows both
+    tiles, 64 and 128 query rows per CTA give the same bits: no atomics, and
+    a row's sums do not depend on the grid."""
+    q, k, v, _ = _f32_inputs(full_f32, 8, sq, sq, d, True)
+    scale = d ** -0.5
+    out, lse = tflash.flash_attention_fwd(q, k, v, scale)
+    again = tflash.flash_attention_fwd(q, k, v, scale)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    one = [x[3:4] for x in (q, k, v)]
+    small = tflash.flash_attention_fwd(*one, scale)
+    assert torch.equal(small[0], out[3:4]) and torch.equal(small[1], lse[3:4])
+    if d <= tflash.F32_WIDE_TILE_MAX_D:
+        rows64, rows128 = (tflash._launch_fwd_f32(*one, scale, r) for r in (64, 128))
+        assert torch.equal(rows64[0], rows128[0]) and torch.equal(rows64[1], rows128[1])
+
+
+@pytest.mark.cuda
+def test_f32_forward_refuses_a_tile_that_does_not_fit_on_cuda(full_f32):
+    """128 query rows per CTA exist only up to F32_WIDE_TILE_MAX_D; asked for more, the
+    C entry refuses before launching and the wrapper raises."""
+    q, k, v, _ = _f32_inputs(full_f32, 1, 256, 256, 80, False)
+    assert tflash.fwd_f32_smem_bytes(128, 80) == -1 and tflash.fwd_f32_smem_bytes(64, 80) > 0
+    with pytest.raises(RuntimeError, match="f32 flash kernel launch failed"):
+        tflash._launch_fwd_f32(q, k, v, 0.1, 128)
 
 
 @pytest.mark.cuda
