@@ -13,8 +13,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 flash forward, then the bf16 backward's three kernels (prep, main,
    dQ convert) and the whole backward, then the f32 forward (its split pass
    bit for bit against its plain version, the forward repeated bit for bit,
-   a row independent of the batch and of the rows per CTA), dQ and dK/dV
-   kernels (TF32 off on both sides);
+   a row independent of the batch and of the rows per CTA) and the f32
+   backward's dQ and dK/dV kernels (3xTF32, each after its own split pass:
+   both split passes bit for bit against their plain versions, the backward
+   repeated bit for bit, a row independent of the batch and of the rows per
+   CTA; TF32 off on both sides);
 4. drive the first path: ``P2PEditor("directinversion+p2p", ...)`` on an
    SD1.4 pipeline at full width (random weights from a seed, bf16, 512², 50
    DDIM steps), a warm-up edit, a timed edit whose kernel launches are
@@ -27,7 +30,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of another batch size (the reconstructions are the VAE round trip; with
    a prompt pair per image, the images do not interact);
 6. drive null-text-inversion+p2p: a warm-up edit at 2 DDIM steps, then one
-   edit at 25 whose launches of every kernel are counted and whose phases
+   edit at 10 whose launches of every kernel are counted and whose phases
    are timed to a synchronize each; the backward kernels run in its inner
    Adam loop, which differentiates through the UNet; then one counted
    ``ddim+p2p`` edit;
@@ -56,8 +59,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the f32 one's by 10x;
 8. the f32 pipeline (``SDPipeline.create(..., dtype=torch.float32)``, full
    f32): one counted directinversion+p2p edit and one counted
-   null-text-inversion+p2p edit, which launch only the f32 kernels, and one
-   UNet call with TF32 on against full f32; then InstructPix2Pix and
+   null-text-inversion+p2p edit, which launch only the f32 kernels, a device
+   trace of the f32 null-text edit (the f32 backward's share), and
+   one UNet call with TF32 on against full f32; then InstructPix2Pix and
    InstructDiffusion on an IP2P pipeline (the 8-channel UNet, bf16, its UNet
    in f32): one counted edit each at 50 steps and ``BatchedInstruct`` on 4
    images at 50 (each edit within 2 uint8 levels of the editor's); every
@@ -194,7 +198,7 @@ F32_O_RTOL = 2e-5
 F32_LSE_ATOL = 1e-5
 F32_BWD_RTOL = 1e-4
 H100_F32_FLOPS = 67e12    # FP32 on the CUDA cores, SXM, 700 W
-H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak (the f32 forward's 3xTF32 products)
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak (the f32 kernels' 3xTF32 products)
 
 
 def card_line() -> str:
@@ -477,37 +481,50 @@ def _bound(flops: float, peak: float, nbytes: float) -> tuple:
 
 
 def f32_flash_bounds(b, h, sq, sk, d) -> dict:
-    """Bounds of the f32 kernels. The forward (``fwd``) runs its two products
-    as 3xTF32 on the tensor cores: 3 x 4 B*H*Sq*Sk*d FLOPs at the TF32 peak,
-    or its bytes with the split copies (q, k, v read; the split pass's hi and
-    lo of K and V^T, ``tile_keys`` rows of each tile, written and read back;
-    O and LSE written), whichever is larger; ``fwd_fp32``: the same products
-    at the CUDA cores' FP32 peak (4 B*H*Sq*Sk*d, the inputs and outputs
-    alone), the bound of an FMA forward; ``split``: the split pass's bytes.
-    The backward kernels run on the CUDA cores (``dq``: QK^T, dO V^T and dS
-    K, 6; ``dkv``: QK^T, dO V^T, P^T dO and dS^T Q, 8; ``bwd``, the whole
-    backward as one function: 10, the plain backward's five products) and,
-    beside each, the same work at the TF32 tensor-core peak (``*_tf32``).
-    Bytes: each input read once, each output written once, 4 per element."""
-    from pnpinversion_tpu_torch.ops.flash_attention import fwd_f32_tile_keys
+    """Bounds of the f32 kernels, each run as 3xTF32 on the tensor cores: 3x
+    the FLOPs of its products at the TF32 peak, or its bytes with the split
+    copies (written by the split pass and read back), whichever is larger;
+    beside each (``*_fp32``) its products alone at the CUDA cores' FP32 peak
+    with the inputs' and outputs' bytes, the bound of an FMA kernel. The
+    forward (``fwd``): QK^T and PV, 4 B*H*Sq*Sk*d; its split pass
+    (``split``: K and V read, the hi and lo of K and V^T written). The
+    backward: ``dq`` (QK^T, dO V^T, dS K: 6), ``dkv`` (QK^T, dO V^T, P^T dO,
+    dS^T Q: 8), each with its own split pass (``bwd_split_dq``: K and V read,
+    the hi and lo of K, V and K^T written; ``bwd_split_dkv``: Q, dO, LSE and
+    delta read, the hi and lo of Q, dO, Q^T and dO^T and the tiles' LSE and
+    delta written), and ``bwd``, the whole backward as one function (the
+    plain backward's five products, 10; delta written and read). Bytes: each
+    input read once, each output written once, 4 per element."""
+    from pnpinversion_tpu_torch.ops import flash_attention as fa
 
     bh, mn = b * h, b * h * sq * sk * d
     q_b, kv_b, stat_b = 4.0 * bh * sq * d, 4.0 * bh * sk * d, 4.0 * bh * sq
-    kt = fwd_f32_tile_keys(d)
-    split_b = 16.0 * bh * (-(-sk // kt) * kt) * d  # hi and lo of K and V^T
+
+    def padded(s, t):
+        return -(-s // t) * t
+
+    kt, bkt, bqt = fa.fwd_f32_tile_keys(d), fa.bwd_f32_tile_keys(d), fa.bwd_f32_tile_queries(d)
+    split_b = 16.0 * bh * padded(sk, kt) * d  # hi and lo of K and V^T
+    split_dq_b = 24.0 * bh * padded(sk, bkt) * d  # hi and lo of K, V and K^T
+    split_dkv_b = 32.0 * bh * padded(sq, bqt) * d + 8.0 * bh * padded(sq, bqt)
     out = {}
     for name, flops, peak, nbytes in (
             ("fwd", 12.0 * mn, H100_TF32_FLOPS, q_b + 2 * kv_b + 2 * split_b + q_b + stat_b),
             ("fwd_fp32", 4.0 * mn, H100_F32_FLOPS, q_b + 2 * kv_b + q_b + stat_b),
-            ("split", 0.0, H100_TF32_FLOPS, 2 * kv_b + split_b)):
+            ("split", 0.0, H100_TF32_FLOPS, 2 * kv_b + split_b),
+            ("dq", 18.0 * mn, H100_TF32_FLOPS,
+             2 * q_b + 2 * kv_b + 2 * stat_b + 2 * split_dq_b + q_b),
+            ("dq_fp32", 6.0 * mn, H100_F32_FLOPS, 2 * q_b + 2 * kv_b + 2 * stat_b + q_b),
+            ("dkv", 24.0 * mn, H100_TF32_FLOPS,
+             2 * q_b + 2 * kv_b + 2 * stat_b + 2 * split_dkv_b + 2 * kv_b),
+            ("dkv_fp32", 8.0 * mn, H100_F32_FLOPS, 2 * q_b + 2 * kv_b + 2 * stat_b + 2 * kv_b),
+            ("bwd_split_dq", 0.0, H100_TF32_FLOPS, 2 * kv_b + split_dq_b),
+            ("bwd_split_dkv", 0.0, H100_TF32_FLOPS, 2 * q_b + 2 * stat_b + split_dkv_b),
+            ("bwd", 30.0 * mn, H100_TF32_FLOPS, 3 * q_b + 2 * kv_b + stat_b + q_b + 2 * kv_b
+             + 2 * stat_b + 2 * (split_dq_b + split_dkv_b)),
+            ("bwd_fp32", 10.0 * mn, H100_F32_FLOPS,
+             3 * q_b + 2 * kv_b + stat_b + q_b + 2 * kv_b)):
         out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = _bound(flops, peak, nbytes)
-    for name, flops, nbytes in (
-            ("dq", 6.0 * mn, 2 * q_b + 2 * kv_b + 2 * stat_b + q_b),
-            ("dkv", 8.0 * mn, 2 * q_b + 2 * kv_b + 2 * stat_b + 2 * kv_b),
-            ("bwd", 10.0 * mn, 3 * q_b + 2 * kv_b + stat_b + q_b + 2 * kv_b)):
-        for suffix, peak in (("", H100_F32_FLOPS), ("_tf32", H100_TF32_FLOPS)):
-            out[f"{name}{suffix}_bound_ms"], out[f"{name}{suffix}_bound_by"] = _bound(
-                flops, peak, nbytes)
     return out
 
 
@@ -551,18 +568,61 @@ def f32_batch_independence() -> list:
     return out
 
 
+def f32_bwd_batch_independence() -> list:
+    """The f32 backward at 64^2 and 32^2: batch row 1 of a B*H 16 call (2
+    rows) against a B*H 8 call on that row alone (the same q, k, v, dO, O
+    and LSE), dQ, dK and dV bit for bit, and the B*H 8 call's dQ and dK/dV
+    at both tiles of rows per CTA where d allows two. Fails on a
+    difference."""
+    from pnpinversion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for size, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80)):
+        q, k, v, do = (_heads(gen, 2, 8, s, d, True, torch.float32) for _ in range(4))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        big = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        q1, k1, v1, o1, lse1, do1 = (x[1:2] for x in (q, k, v, o, lse, do))
+        small = fa.flash_attention_bwd(q1, k1, v1, o1, lse1, do1, scale)
+        row = {"size": size,
+               "tile_rows_bh16": {kern: fa.bwd_f32_tile_rows(kern, 16, s, d, sms)
+                                  for kern in ("dq", "dkv")},
+               "tile_rows_bh8": {kern: fa.bwd_f32_tile_rows(kern, 8, s, d, sms)
+                                 for kern in ("dq", "dkv")},
+               "row_of_bh16_equals_bh8": _same(tuple(x[1:2] for x in big), small)}
+        row["ok"] = row["row_of_bh16_equals_bh8"]
+        delta = (do1 * o1).sum(-1).contiguous()
+        for kern in ("dq", "dkv"):
+            if d <= fa.F32_BWD_WIDE_TILE_MAX_D[kern]:  # both tiles of rows exist
+                r64, r128 = (fa._launch_bwd_f32(q1, k1, v1, do1, lse1, delta, scale,
+                                                kern == "dq", rows) for rows in (64, 128))
+                same = torch.equal(r64, r128) if kern == "dq" else _same(r64, r128)
+                row[f"{kern}_rows64_equals_rows128"] = same
+                row["ok"] &= same
+        print("flash_f32_bwd_batch_independence", json.dumps(row), flush=True)
+        if not row["ok"]:
+            raise AssertionError(f"the f32 backward's rows depend on the batch or the tile: {row}")
+        out.append(row)
+        del q, k, v, do, o, lse, big, small
+    return out
+
+
 def f32_kernel_phase(timing: bool = True) -> dict:
     """The f32 kernels (forward, dQ, dK/dV) vs their plain versions at every
     f32 case, TF32 off on both sides: O within ``F32_O_RTOL`` of max |plain|,
     LSE within ``F32_LSE_ATOL``, the forward's split pass bit for bit against
     its plain version, the forward repeated bit for bit, dQ/dK/dV within
-    ``F32_BWD_RTOL`` of max |plain|, and the backward bit-identical run to
-    run (no atomics); then ``f32_batch_independence``. Each forward row
-    names its tile and the memory one call adds (O, LSE and the split
-    scratch). Times at the timed cases (none with ``timing=False``): each
-    kernel (the forward whole, and its split pass alone), its plain version
-    and f32 SDPA (forward, and backward on a graph built once), a yardstick
-    only."""
+    ``F32_BWD_RTOL`` of max |plain|, the backward's two split passes bit for
+    bit against their plain versions, and the backward bit-identical run to
+    run (no atomics); then ``f32_batch_independence`` and
+    ``f32_bwd_batch_independence``. Each row names its tiles and the memory
+    one call adds (the outputs and the split scratch). Times at the timed
+    cases (none with ``timing=False``): each kernel (the forward whole, dQ
+    and dK/dV each with its split pass, and the split passes alone), its
+    plain version and f32 SDPA (forward, and backward on a graph built
+    once), a yardstick only."""
     from pnpinversion_tpu_torch.ops import flash_attention as fa
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
@@ -570,7 +630,8 @@ def f32_kernel_phase(timing: bool = True) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     fwd_rows, bwd_rows = [], []
-    worst = {"o": 0.0, "lse": 0.0, "split": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst = {"o": 0.0, "lse": 0.0, "split": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0,
+             "bwd_split": 0.0}
     for name, b, h, sq, sk, d, strided, timed, dtype in FLASH_CASES:
         if dtype != "f32":
             continue
@@ -631,12 +692,22 @@ def f32_kernel_phase(timing: bool = True) -> dict:
         scale = d ** -0.5
         out, lse = fa.flash_attention_fwd(q, k, v, scale)
         delta = (do * out).sum(-1).contiguous()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         dq = fa.flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, scale)
         dk, dv = fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
         again = [fa.flash_attention_bwd(q, k, v, out, lse, do, scale) for _ in range(2)]
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, scale)
-        row = {"case": name, "shape": [b, h, sq, sk, d], "ok": True}
+        rows = {kern: fa.bwd_f32_tile_rows(kern, b * h, sq if kern == "dq" else sk, d, sms)
+                for kern in ("dq", "dkv")}
+        row = {"case": name, "shape": [b, h, sq, sk, d], "tile_rows": rows,
+               "tile_keys": fa.bwd_f32_tile_keys(d), "tile_queries": fa.bwd_f32_tile_queries(d),
+               "smem_bytes": {kern: fa.bwd_f32_smem_bytes(kern, r, d) for kern, r in rows.items()},
+               "call_peak_mib": peak / 2**20, "ok": True}
         for key, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
             row[f"max_abs_err_{key}"] = (got - ref).abs().max().item()
             row[f"rel_err_{key}"] = _rel(got, ref)
@@ -646,6 +717,16 @@ def f32_kernel_phase(timing: bool = True) -> dict:
             torch.equal(x, y) for g in again for x, y in zip(g, (dq, dk, dv)))
         row["ok"] &= row["bit_identical_run_to_run"]
         del again
+        for kern, args in (("dq", (k, v)), ("dkv", (q, do, lse, delta))):
+            got = fa.flash_attention_bwd_f32_split(*args)
+            ref = fa.flash_attention_bwd_f32_split_reference(*args)
+            row[f"split_{kern}_bit_identical"] = torch.equal(got, ref)
+            row["ok"] &= row[f"split_{kern}_bit_identical"]
+            finite = torch.isfinite(ref)  # the LSE of queries past Sq is +inf on both sides
+            err = (got[finite] - ref[finite]).abs().max().item()
+            row[f"split_{kern}_max_abs_err"] = err
+            worst["bwd_split"] = max(worst["bwd_split"], err)
+            del got, ref
         if timed:
             leaves = [x.detach().contiguous().requires_grad_(True) for x in (q, k, v)]
             lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=scale)
@@ -654,17 +735,28 @@ def f32_kernel_phase(timing: bool = True) -> dict:
                 "dq_ms": lambda: fa.flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, scale),
                 "dkv_ms": lambda: fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta,
                                                                  scale),
+                "split_dq_ms": lambda: fa.flash_attention_bwd_f32_split(k, v),
+                "split_dkv_ms": lambda: fa.flash_attention_bwd_f32_split(q, do, lse, delta),
+                "delta_ms": lambda: (do * out).sum(-1).contiguous(),
                 "bwd_ms": lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, scale),
                 "plain_dq_ms": lambda: fa.flash_attention_bwd_dq_reference(
                     q, k, v, do, lse, delta, scale),
                 "plain_dkv_ms": lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, do, lse, delta, scale),
+                "plain_split_dq_ms": lambda: fa.flash_attention_bwd_f32_split_reference(k, v),
+                "plain_split_dkv_ms": lambda: fa.flash_attention_bwd_f32_split_reference(
+                    q, do, lse, delta),
                 "plain_bwd_ms": lambda: fa.flash_attention_bwd_reference(
                     q, k, v, out, lse, do, scale),
                 "library_bwd_ms": lambda: torch.autograd.grad(lib_out, leaves, dout,
                                                               retain_graph=True)}))
             bounds = f32_flash_bounds(b, h, sq, sk, d)
-            row.update({k_: v_ for k_, v_ in bounds.items() if not k_.startswith("fwd")})
+            row.update({k_: v_ for k_, v_ in bounds.items() if not k_.startswith(("fwd", "split"))})
+            row.update(share_of_bound=bounds["bwd_bound_ms"] / row["bwd_ms"],
+                       dq_share_of_bound=bounds["dq_bound_ms"] / row["dq_ms"],
+                       dkv_share_of_bound=bounds["dkv_bound_ms"] / row["dkv_ms"],
+                       split_share=(row["split_dq_ms"] + row["split_dkv_ms"]) / row["bwd_ms"],
+                       over_library=row["bwd_ms"] / row["library_bwd_ms"])
             del leaves, lib_out
         print("flash_f32_bwd", json.dumps(row), flush=True)
         if not row["ok"]:
@@ -672,9 +764,10 @@ def f32_kernel_phase(timing: bool = True) -> dict:
                                  f"version: {row}")
         bwd_rows.append(row)
         del q, k, v, do, out, lse, delta, dq, dk, dv, want
+    bwd_independence = f32_bwd_batch_independence()
     torch.cuda.empty_cache()
     return {"fwd_rows": fwd_rows, "bwd_rows": bwd_rows, "max_abs_err": worst,
-            "batch_independence": independence}
+            "batch_independence": independence, "bwd_batch_independence": bwd_independence}
 
 
 def _sync_time(fn):
@@ -691,9 +784,10 @@ EDIT_KW = dict(guidance_scale=7.5, blend_word=(("cake",), ("cake",)),
                eq_params={"words": ("square",), "values": (2.0,)})
 NULL_TEXT = "null-text-inversion+p2p"
 # DDIM steps of the counted null-text edit: 25 since the MasaCtrl, PnP and
-# EF families joined the script (its 500 inner steps at 50 took ~95 s; the
-# shapes, and so the kernels' checks, do not depend on the steps)
-NULL_TEXT_STEPS = 25
+# EF families joined the script (its 500 inner steps at 50 took ~95 s), 10
+# since the f32 null-text trace did (its 250 inner steps took 62-78 s); the
+# shapes, and so the kernels' checks, do not depend on the steps
+NULL_TEXT_STEPS = 10
 NULL_TEXT_INNER = 10  # the reference's num_inner_steps, the editor's default
 
 
@@ -726,7 +820,8 @@ def _f32_counts() -> dict:
     return {"fwd": fa.flash_attention_fwd_f32.launches,
             "split": fa.flash_attention_fwd_f32_split.launches,
             "dq": fa.flash_attention_bwd_dq_f32.launches,
-            "dkv": fa.flash_attention_bwd_dkv_f32.launches}
+            "dkv": fa.flash_attention_bwd_dkv_f32.launches,
+            "bwd_split": fa.flash_attention_bwd_f32_split.launches}
 
 
 # (dtype, B, H, Sq, Sk, D) of every launch on the paths, by kernel: the
@@ -957,7 +1052,8 @@ def _check_f32_launches(name: str, calls: int) -> dict:
     per flash site per UNet call, no backward, and no bf16 kernel. Returns
     the f32 counts."""
     counts, bf16 = _f32_counts(), _counts()
-    want = {"fwd": FLASH_SITES * calls, "split": FLASH_SITES * calls, "dq": 0, "dkv": 0}
+    want = {"fwd": FLASH_SITES * calls, "split": FLASH_SITES * calls, "dq": 0, "dkv": 0,
+            "bwd_split": 0}
     if counts != want or any(bf16.values()):
         raise AssertionError(f"{name}: f32 launches {counts} (bf16 kernels {bf16}), want "
                              f"{want} and no bf16 kernel ({calls} UNet calls)")
@@ -1878,6 +1974,56 @@ def instruct_phase() -> dict:
 
 F32_DI_STEPS = 50        # DDIM steps of the f32 directinversion+p2p edit
 F32_NULL_TEXT_STEPS = 3  # and of the f32 null-text edit (10 inner steps each)
+F32_BWD_KERNELS = {"dq": "flash_bwd_dq_f32_kernel", "dkv": "flash_bwd_dkv_f32_kernel",
+                   "split": "flash_bwd_f32_split_kernel"}
+
+
+def f32_null_text_trace(pipe, image: np.ndarray) -> dict:
+    """One f32 ``null-text-inversion+p2p`` edit at ``F32_NULL_TEXT_STEPS``
+    under torch.profiler (at 1 step the random-weight edit stops after one
+    inner step, so its trace would hold one backward UNet call among six
+    forward ones): the device seconds of the f32 backward's kernels (dQ,
+    dK/dV and their split pass) summed and per launch, by head dim (d = 40
+    at the 64^2 sites, 80 at 32^2: the kernels' template arguments), their
+    launches in the trace against the same edit's count without the
+    profiler (one dQ and one dK/dV per differentiated site per inner step,
+    a split pass before each), and their share of the sum of every kernel's
+    traced time and of that edit's wall time."""
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+
+    editor = P2PEditor(dataclasses.replace(pipe,
+                                           schedule=make_ddim_schedule(F32_NULL_TEXT_STEPS)))
+    _reset_counts()
+    _, t_plain = _sync_time(lambda: editor(NULL_TEXT, image, SRC, TAR, **EDIT_KW))
+    counts = _f32_counts()
+    wall, us, n = _device_trace(lambda: editor(NULL_TEXT, image, SRC, TAR, **EDIT_KW))
+    kernel_sum = sum(us.values()) / 1e6
+    by_kernel = {}
+    for key, pattern in F32_BWD_KERNELS.items():
+        for name in us:
+            if pattern not in name:
+                continue
+            args = re.search(r"<(\d+), (\d+)>", name)
+            d = f"d{8 * int(args.group(2))}" if args else "all"
+            row = by_kernel.setdefault(key, {}).setdefault(d, {"device_s": 0.0, "launches": 0})
+            row["device_s"] += us[name] / 1e6
+            row["launches"] += n[name]
+    launches = {k: sum(r["launches"] for r in rows.values()) for k, rows in by_kernel.items()}
+    if not (launches.get("dq") == launches.get("dkv") == counts["dq"] == counts["dkv"] > 0
+            and launches.get("split") == counts["bwd_split"] == 2 * counts["dq"]):
+        raise AssertionError(f"the traced f32 null-text edit launched the backward's kernels "
+                             f"{launches} times, its untraced run {counts}")
+    for rows in by_kernel.values():
+        for row in rows.values():
+            row["ms_per_launch"] = row["device_s"] * 1e3 / row["launches"]
+    bwd = sum(r["device_s"] for rows in by_kernel.values() for r in rows.values())
+    return {"steps": F32_NULL_TEXT_STEPS, "inner_steps": counts["dq"] // BWD_SITES,
+            "edit_s": t_plain, "traced_edit_s": wall, "kernel_time_sum_s": kernel_sum,
+            "bwd_device_s": bwd, "bwd_ms_per_backward": bwd * 1e3 / counts["dq"],
+            "bwd_share_of_kernel_time_sum": bwd / kernel_sum, "bwd_share_of_edit": bwd / t_plain,
+            "by_kernel": by_kernel, "launches": launches,
+            "top": [{"kernel": k[:90], "s": v / 1e6} for k, v in us.most_common(8)]}
 
 
 def f32_path_phase() -> dict:
@@ -1887,8 +2033,9 @@ def f32_path_phase() -> dict:
     null-text-inversion+p2p edit at ``F32_NULL_TEXT_STEPS`` (its inner Adam
     loop runs the f32 backward kernels), each timed, its peak memory read and
     its launches of every kernel counted against the code's own count: only
-    the f32 kernels run. Then one UNet call with TF32 on against full f32,
-    the number beside the f32 policy (``utils.device.use_full_f32``)."""
+    the f32 kernels run. Then ``f32_null_text_trace``, and one UNet call with
+    TF32 on against full f32, the number beside the f32 policy
+    (``utils.device.use_full_f32``)."""
     from pnpinversion_tpu_torch.configs import SD14
     from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
     from pnpinversion_tpu_torch.pipeline import SDPipeline
@@ -1915,18 +2062,22 @@ def f32_path_phase() -> dict:
         inner = counts["dq"] // BWD_SITES
         calls = 2 * steps if method == "directinversion+p2p" else 5 * steps + inner
         ok = (bf16 == no_bf16 and counts["dq"] == counts["dkv"] == BWD_SITES * inner
+              and counts["bwd_split"] == counts["dq"] + counts["dkv"]
               and counts["fwd"] == counts["split"] == FLASH_SITES * calls
               and (steps <= inner <= NULL_TEXT_INNER * steps if method == NULL_TEXT
                    else inner == 0))
         if not ok:
             raise AssertionError(f"f32 {method}: launches {counts} (bf16 kernels {bf16}), want "
                                  f"{FLASH_SITES} forward per UNet call and {BWD_SITES} of each "
-                                 f"backward kernel per inner step, no bf16 kernel")
+                                 f"backward kernel per inner step (and one split pass each), "
+                                 f"no bf16 kernel")
         out[method] = {"steps": steps, "edit_s": t, "launches": counts,
                        "inner_steps_total": inner,
                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                        "edit_panel_std": float(strip[:, 3 * size:].std())}
         print("f32_path", json.dumps({"method": method, **out[method]}), flush=True)
+    out["f32_null_text_trace"] = f32_null_text_trace(pipe, image())
+    print("f32_null_text_trace", json.dumps(out["f32_null_text_trace"]), flush=True)
 
     # one UNet call, full f32 against TF32 (cuDNN's convolutions only, PyTorch's
     # default, and the matrix products too)
@@ -2100,8 +2251,8 @@ def eval_phase(batch_out: dict, calc=None) -> dict:
 
 
 BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
-F32_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_f32.cu"
 F32_FWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_fwd_f32.cu"
+F32_BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd_f32.cu"
 TPU_FLASH = "pnpinversion_tpu/ops/flash_attention.py"
 
 
@@ -2111,19 +2262,23 @@ def _f32_entries(f32: dict, f32_path: dict, fwd_by_path: dict) -> list:
     split pass at the f32 DirectInversion scan's 64^2 shape (3 rows) with
     their launches in the f32 directinversion+p2p edit (and, by path, in the
     f32 families of the bf16 pipeline: ``fwd_by_path``; the split pass runs
-    once per forward on every path), the dQ and dK/dV kernels at the f32 null-text
-    inner loop's 64^2 shape with their launches in the f32 null-text edit.
-    SDPA's backward computes dQ, dK and dV together, so the dK/dV entry's
-    times are the whole f32 backward's (delta, dQ, dK/dV), like with like,
-    and the kernel's own times stand beside them."""
+    once per forward on every path), the dQ and dK/dV kernels (each ``ms``
+    covering its own split pass) and the backward's split passes at the f32
+    null-text inner loop's 64^2 shape with their launches in the f32
+    null-text edit. SDPA's backward computes dQ, dK and dV together, so the
+    dK/dV entry's times are the whole f32 backward's (delta, both split
+    passes, dQ, dK/dV), like with like, and the kernel's own times stand
+    beside them."""
     fwd = next(r for r in f32["fwd_rows"] if r["case"] == "f32_rows3_64x64")
     bwd = next(r for r in f32["bwd_rows"] if r["case"] == "f32_nulltext_64x64")
     err = f32["max_abs_err"]
     di, nt = f32_path["directinversion+p2p"]["launches"], f32_path[NULL_TEXT]["launches"]
     by_path = {"fwd": {"f32 directinversion+p2p": di["fwd"], f"f32 {NULL_TEXT}": nt["fwd"],
                        **fwd_by_path},
-               "bwd": {f"f32 {NULL_TEXT}": nt["dq"]}}
-    common = {"route": "cuda", "source": F32_SOURCE}
+               "bwd": {f"f32 {NULL_TEXT}": nt["dq"]},
+               "bwd_split": {f"f32 {NULL_TEXT}": nt["bwd_split"]}}
+    common = {"route": "cuda", "source": F32_BWD_SOURCE, "shape": bwd["shape"]}
+    trace = f32_path["f32_null_text_trace"]["by_kernel"]
     fwd_common = {"route": "cuda", "source": F32_FWD_SOURCE, "replaces": f"{TPU_FLASH}:60",
                   "launches_by_path": by_path["fwd"], "shape": fwd["shape"]}
     return [
@@ -2141,18 +2296,32 @@ def _f32_entries(f32: dict, f32_path: dict, fwd_by_path: dict) -> list:
          "launches": nt["dq"], "launches_by_path": by_path["bwd"], "max_abs_err": err["dq"],
          "ms": bwd["dq_ms"], "plain_ms": bwd["plain_dq_ms"], "bound_ms": bwd["dq_bound_ms"],
          "bound_by": bwd["dq_bound_by"], "library_ms": None,
-         "tf32_bound_ms": bwd["dq_tf32_bound_ms"], "shape": bwd["shape"]},
+         "fp32_bound_ms": bwd["dq_fp32_bound_ms"], "split_ms": bwd["split_dq_ms"],
+         "ms_covers": "its split pass and the dQ kernel", "f32_null_text_trace": trace["dq"]},
         {"name": "flash_attention_bwd_dkv_f32", **common, "replaces": f"{TPU_FLASH}:128",
          "launches": nt["dkv"], "launches_by_path": by_path["bwd"],
          "max_abs_err": max(err["dk"], err["dv"]), "ms": bwd["bwd_ms"],
          "plain_ms": bwd["plain_bwd_ms"], "bound_ms": bwd["bwd_bound_ms"],
          "bound_by": bwd["bwd_bound_by"], "library_ms": bwd["library_bwd_ms"],
-         "tf32_bound_ms": bwd["bwd_tf32_bound_ms"],
-         "ms_covers": "the whole f32 backward (delta, dQ, dK/dV), as SDPA's",
+         "fp32_bound_ms": bwd["bwd_fp32_bound_ms"],
+         "ms_covers": "the whole f32 backward (delta, both split passes, dQ, dK/dV), as SDPA's",
          "library_computes": "dq, dk and dv (the whole backward of f32 SDPA)",
          "dkv_kernel_ms": bwd["dkv_ms"], "dkv_kernel_plain_ms": bwd["plain_dkv_ms"],
-         "dkv_kernel_bound_ms": bwd["dkv_bound_ms"], "shape": bwd["shape"],
-         "per_case": f32["bwd_rows"]},
+         "dkv_kernel_bound_ms": bwd["dkv_bound_ms"],
+         "dkv_kernel_fp32_bound_ms": bwd["dkv_fp32_bound_ms"], "split_ms": bwd["split_dkv_ms"],
+         "dkv_kernel_ms_covers": "its split pass and the dK/dV kernel",
+         "f32_null_text_trace": trace["dkv"],
+         "batch_independence": f32["bwd_batch_independence"], "per_case": f32["bwd_rows"]},
+        {"name": "flash_attention_bwd_f32_split", **common, "replaces": f"{TPU_FLASH}:99",
+         "also_replaces": f"{TPU_FLASH}:128", "launches": nt["bwd_split"],
+         "launches_by_path": by_path["bwd_split"], "max_abs_err": err["bwd_split"],
+         "ms": bwd["split_dq_ms"] + bwd["split_dkv_ms"],
+         "plain_ms": bwd["plain_split_dq_ms"] + bwd["plain_split_dkv_ms"],
+         "bound_ms": bwd["bwd_split_dq_bound_ms"] + bwd["bwd_split_dkv_bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "ms_covers": "both split passes of one backward (dQ's of K and V, dK/dV's of Q and dO)",
+         "part_of": "flash_attention_bwd_dq_f32 and flash_attention_bwd_dkv_f32 (checked bit "
+                    "for bit at every f32 backward case)", "f32_null_text_trace": trace["split"]},
     ]
 
 
@@ -2194,8 +2363,8 @@ def main() -> int:
         return 1
     from pnpinversion_tpu_torch.configs import SD14
     from pnpinversion_tpu_torch.ops import build
-    from pnpinversion_tpu_torch.ops.flash_attention import (BWD_KERNEL, F32_FWD_KERNEL,
-                                                            F32_KERNEL, KERNEL)
+    from pnpinversion_tpu_torch.ops.flash_attention import (BWD_KERNEL, F32_BWD_KERNEL,
+                                                            F32_FWD_KERNEL, KERNEL)
     from pnpinversion_tpu_torch.pipeline import SDPipeline
 
     t_start = time.perf_counter()
@@ -2207,9 +2376,9 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    build_s = build.build([KERNEL, BWD_KERNEL, F32_KERNEL, F32_FWD_KERNEL])
+    build_s = build.build([KERNEL, BWD_KERNEL, F32_BWD_KERNEL, F32_FWD_KERNEL])
     print(f"build: {json.dumps(build_s)} total {time.perf_counter() - t0:.1f}s", flush=True)
-    for name in (KERNEL, BWD_KERNEL, F32_KERNEL, F32_FWD_KERNEL):
+    for name in (KERNEL, BWD_KERNEL, F32_BWD_KERNEL, F32_FWD_KERNEL):
         summary = ptxas_summary(build.build_log(name))
         print(f"ptxas {name}.cu:", *summary, sep="\n  ", flush=True)
         lost = [line for line in summary if re.search(

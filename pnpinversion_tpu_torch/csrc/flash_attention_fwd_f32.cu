@@ -64,8 +64,7 @@
 // QK^T inside a warpgroup (the bf16 forward's schedule), the split of K and V
 // inside the main kernel, a persistent grid.
 
-#include "hopper_common.cuh"
-#include "wgmma_tf32.cuh"
+#include "tf32_tiles.cuh"
 #include <math.h>
 
 namespace {
@@ -109,29 +108,6 @@ struct Cfg {
   static constexpr int kMinBlocks = NC == 1 && 2 * (kSmemBytes + 1024) <= 233472 ? 2 : 1;
 };
 
-// wgmma descriptor (no swizzle) of a K-major tile with kdim columns stored
-// as 8x4 core matrices (8 rows of 16 bytes, 128 contiguous bytes), row groups
-// outermost: element (row, col) at byte ((row / 8) (kdim / 4) + col / 4) 128 +
-// (row % 8) 16 + (col % 4) 4. 128 bytes between column chunks (LBO), 32 kdim
-// between row groups (SBO); a k-step of 8 columns starts 256 bytes on.
-__device__ __forceinline__ uint64_t cm_desc(uint32_t addr, int kdim) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>((32 * kdim) >> 4) << 32);
-}
-
-// hi = tf32(x), rounded to nearest (ties away), low 13 bits zero
-__device__ __forceinline__ uint32_t tf32_hi(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
-  hi = make_float4(__uint_as_float(tf32_hi(x.x)), __uint_as_float(tf32_hi(x.y)),
-                   __uint_as_float(tf32_hi(x.z)), __uint_as_float(tf32_hi(x.w)));
-  lo = make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w);
-}
-
 struct SplitParams {
   const float *k, *v;
   int64_t k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
@@ -145,26 +121,17 @@ struct SplitParams {
 // 1 3 5 7, so chunk kc of a row holds keys 8 (kc / 2) + (kc % 2) + 2 u.
 __global__ void __launch_bounds__(256) flash_fwd_f32_split_kernel(const SplitParams p) {
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / p.heads, h = bh - b * p.heads;
-  const int arr = p.kt * p.d, d4 = p.d / 4, kt4 = p.kt / 4, key0 = j * p.kt;
+  const int arr = p.kt * p.d, key0 = j * p.kt;
   float4* out =
       reinterpret_cast<float4*>(p.out + (static_cast<int64_t>(bh) * p.n_tiles + j) * 4 * arr);
   const float* kb = p.k + b * p.k_sb + h * p.k_sh;
   const float* vb = p.v + b * p.v_sb + h * p.v_sh;
   for (int i = threadIdx.x; i < arr / 4; i += blockDim.x) {
-    const int cm = i >> 3, rr = i & 7;
-    const int key = key0 + 8 * (cm / d4) + rr, cc = cm % d4;
-    const float4 x = key < p.sk ? *reinterpret_cast<const float4*>(kb + key * p.k_ss + 4 * cc)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
     float4 hi, lo;
-    split4(x, hi, lo);
+    split4(row_chunk(kb, p.k_ss, key0, p.sk, p.d, i), hi, lo);
     out[i] = hi;
     out[arr / 4 + i] = lo;
-    const int n = 8 * (cm / kt4) + rr, kc = cm % kt4;
-    const int vkey = key0 + 8 * (kc >> 1) + (kc & 1);
-    float y[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) y[u] = vkey + 2 * u < p.sk ? vb[(vkey + 2 * u) * p.v_ss + n] : 0.f;
-    split4(make_float4(y[0], y[1], y[2], y[3]), hi, lo);
+    split4(col_chunk(vb, p.v_ss, key0, p.sk, p.kt, i), hi, lo);
     out[2 * (arr / 4) + i] = hi;
     out[3 * (arr / 4) + i] = lo;
   }
@@ -180,45 +147,6 @@ struct FwdParams {
   int heads, sq, sk, n_tiles;
   float scale_log2;  // scale * log2(e)
 };
-
-// S = Q K^T: three chains of D8 k-steps, small terms first.
-template <int KT, int D8>
-__device__ __forceinline__ void issue_qk(float (&s)[KT / 2], uint32_t q_hi, uint32_t q_lo,
-                                         uint32_t k_hi, uint32_t k_lo) {
-  constexpr int D = 8 * D8;
-#pragma unroll
-  for (int ks = 0; ks < D8; ++ks)
-    WgmmaTf32<KT>::ss(s, cm_desc(q_hi + 256 * ks, D), cm_desc(k_lo + 256 * ks, D), ks > 0);
-#pragma unroll
-  for (int ks = 0; ks < D8; ++ks)
-    WgmmaTf32<KT>::ss(s, cm_desc(q_lo + 256 * ks, D), cm_desc(k_hi + 256 * ks, D), 1);
-#pragma unroll
-  for (int ks = 0; ks < D8; ++ks)
-    WgmmaTf32<KT>::ss(s, cm_desc(q_hi + 256 * ks, D), cm_desc(k_hi + 256 * ks, D), 1);
-}
-
-// O_tile = P V: three chains of KT / 8 k-steps (a group of 8 keys each), small
-// terms first. The A fragment of group c is P's accumulator registers 4c ..
-// 4c + 3 in the order 0, 2, 1, 3 (slots t and t + 4 hold keys 2t and 2t + 1).
-// (P's hi part has registers of its own: kept in S's, ptxas serialised the
-// wgmmas for want of registers, C7511, and 32^2 ran 2.4x slower.)
-template <int D, int KT>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&hi)[KT / 2],
-                                         const uint32_t (&lo)[KT / 2], uint32_t v_hi,
-                                         uint32_t v_lo) {
-#pragma unroll
-  for (int c = 0; c < KT / 8; ++c)
-    WgmmaTf32<D>::rs(o, hi[4 * c], hi[4 * c + 2], hi[4 * c + 1], hi[4 * c + 3],
-                     cm_desc(v_lo + 256 * c, KT), c > 0);
-#pragma unroll
-  for (int c = 0; c < KT / 8; ++c)
-    WgmmaTf32<D>::rs(o, lo[4 * c], lo[4 * c + 2], lo[4 * c + 1], lo[4 * c + 3],
-                     cm_desc(v_hi + 256 * c, KT), 1);
-#pragma unroll
-  for (int c = 0; c < KT / 8; ++c)
-    WgmmaTf32<D>::rs(o, hi[4 * c], hi[4 * c + 2], hi[4 * c + 1], hi[4 * c + 3],
-                     cm_desc(v_hi + 256 * c, KT), 1);
-}
 
 template <int NC, int D8>
 __global__ void __launch_bounds__(Cfg<NC, D8>::kThreads, Cfg<NC, D8>::kMinBlocks)
@@ -264,23 +192,12 @@ __global__ void __launch_bounds__(Cfg<NC, D8>::kThreads, Cfg<NC, D8>::kMinBlocks
 
     // this warpgroup's 64 Q rows, split into hi and lo (zero past Sq)
     const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-    for (int i = tid; i < 16 * D; i += 128) {
-      const int cm = i >> 3, row = 8 * (cm / (D / 4)) + (i & 7), cc = cm % (D / 4);
-      const float4 x = row0 + row < p.sq
-                           ? *reinterpret_cast<const float4*>(qb + (row0 + row) * p.q_ss + 4 * cc)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 hi, lo;
-      split4(x, hi, lo);
-      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(q_hi + 16 * i), "f"(hi.x),
-                   "f"(hi.y), "f"(hi.z), "f"(hi.w)
-                   : "memory");
-      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(q_lo + 16 * i), "f"(lo.x),
-                   "f"(lo.y), "f"(lo.z), "f"(lo.w)
-                   : "memory");
-    }
+    split_rows_to_smem<D>(q_hi, q_lo, qb, p.q_ss, row0, p.sq, tid);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the wgmmas' reads
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 
+    // P's hi part has registers of its own: kept in S's, ptxas serialised the
+    // wgmmas for want of registers (C7511), and 32^2 ran 2.4x slower
     float o[D / 2], ot[D / 2], s[KT / 2];
     uint32_t phi[KT / 2], plo[KT / 2];
 #pragma unroll
@@ -297,7 +214,7 @@ __global__ void __launch_bounds__(Cfg<NC, D8>::kThreads, Cfg<NC, D8>::kMinBlocks
       mbar_wait(bar_full + 8 * st, (j / kStages) & 1);
       reg_fence(s);
       wgmma_fence();
-      issue_qk<KT, D8>(s, q_hi, q_lo, k_hi, k_lo);
+      mma3_ss<KT, D8>(s, q_hi, q_lo, k_hi, k_lo);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(s);
@@ -328,15 +245,14 @@ __global__ void __launch_bounds__(Cfg<NC, D8>::kThreads, Cfg<NC, D8>::kMinBlocks
         const int r = (i >> 1) & 1;
         const float pr = exp2f(fmaf(s[i], p.scale_log2, -m_run[r]));
         l_run[r] += pr;
-        phi[i] = tf32_hi(pr);
-        plo[i] = __float_as_uint(pr - __uint_as_float(phi[i]));
+        split_reg(pr, phi[i], plo[i]);
       }
 
       reg_fence(ot);
       reg_fence(phi);
       reg_fence(plo);
       wgmma_fence();
-      issue_pv<D, KT>(ot, phi, plo, v_hi, v_lo);
+      mma3_rs<D, KT>(ot, phi, plo, v_hi, v_lo, true);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(ot);

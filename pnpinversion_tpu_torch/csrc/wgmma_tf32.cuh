@@ -1,5 +1,5 @@
 // TF32 wgmma (m64nNk8, f32 accumulators) for Hopper (sm_90a): the products of
-// the f32 flash forward (flash_attention_fwd_f32.cu). Written by
+// the f32 flash kernels (flash_attention_{fwd,bwd}_f32.cu). Written by
 // scripts/gen_wgmma_tf32.py; edit that script, not this file.
 //
 // WgmmaTf32<N>::ss: D(64xN) (+)= A(64x8) B(Nx8)^T, A and B K-major in shared
@@ -18,6 +18,15 @@ struct WgmmaTf32;
 
 template <>
 struct WgmmaTf32<8> {
+  static __device__ __forceinline__ void ss(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   static __device__ __forceinline__ void rs(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                             uint32_t a3, uint64_t db, int scale_d) {
     asm volatile(
@@ -32,6 +41,16 @@ struct WgmmaTf32<8> {
 
 template <>
 struct WgmmaTf32<16> {
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   static __device__ __forceinline__ void rs(float (&d)[8], uint32_t a0, uint32_t a1, uint32_t a2,
                                             uint32_t a3, uint64_t db, int scale_d) {
     asm volatile(

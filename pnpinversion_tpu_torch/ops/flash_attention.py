@@ -10,9 +10,10 @@ which run in the inputs' storage dtype, bf16 or f32. For bf16,
 main kernel, a dQ convert kernel). For f32, ``csrc/flash_attention_fwd_f32.cu``
 replaces ``_flash_kernel`` (a split pass that writes the hi and lo TF32
 halves of K and V^T, and a 3xTF32 wgmma kernel), and
-``csrc/flash_attention_f32.cu`` replaces the two backward kernels one for one
-(a dQ and a dK/dV kernel). Each header says what bounds it on an H100 and
-what the design does about that.
+``csrc/flash_attention_bwd_f32.cu`` replaces the two backward kernels one for
+one (a dQ and a dK/dV kernel, 3xTF32 wgmma, each fed by its own split pass).
+Each header says what bounds it on an H100 and what the design does about
+that.
 Layout is the JAX package's: q (B, H, Sq, D), k/v (B, H, Sk, D); the forward
 returns O in the input dtype and the row log-sum-exp LSE (B, H, Sq) in f32,
 which the backward reads.
@@ -35,16 +36,23 @@ from pnpinversion_tpu_torch.ops import build
 
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
-F32_KERNEL = "flash_attention_f32"
 F32_FWD_KERNEL = "flash_attention_fwd_f32"
-# V^T's order of the keys in each group of 8 in the f32 forward: slot s holds
-# key F32_KEY_PERM[s], so that P's accumulator registers (keys 2t and 2t + 1
-# of a thread) are the TF32 A fragment (slots t and t + 4) as they stand
+F32_BWD_KERNEL = "flash_attention_bwd_f32"
+# the order of the positions in each group of 8 of a transposed tile of the
+# f32 kernels (V^T in the forward; K^T, Q^T and dO^T in the backward): slot s
+# holds position F32_KEY_PERM[s], so that an accumulator's registers (columns
+# 2t and 2t + 1 of a thread: P, dS, P^T, dS^T) are the TF32 A fragment (slots
+# t and t + 4) as they stand
 F32_KEY_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
 # the f32 forward's 128-row tiles (two consumer warpgroups and a producer
 # warp: 168 registers a thread) exist up to this head dim; past it ptxas
 # spills (d = 64) or the Q tile and two stages outgrow shared memory (d = 80)
 F32_WIDE_TILE_MAX_D = 56
+# the f32 backward's 128-row tiles (two consumer warpgroups sharing each stage
+# of the other side's tiles: 168 registers a thread) exist up to these head
+# dims; past them dK/dV spills (d = 56) or dQ's rows and two stages outgrow
+# shared memory (d = 48)
+F32_BWD_WIDE_TILE_MAX_D = {"dq": 40, "dkv": 48}
 MAX_HEAD_DIM = 128
 BWD_BLOCK_Q = 64  # query rows per tile of the backward's stats and dQ accumulator
 LOG2E = math.log2(math.e)
@@ -248,6 +256,30 @@ def fwd_f32_tile_rows(bh: int, sq: int, d: int, sms: int) -> int:
     sharing each K/V stage, so each stage is loaded once for twice the rows)
     or 64, by waves as ``fwd_tile_rows``; 64 past ``F32_WIDE_TILE_MAX_D``."""
     return 64 if d > F32_WIDE_TILE_MAX_D else _tile_by_waves(bh, sq, sms)
+
+
+def bwd_f32_tile_keys(d: int) -> int:
+    """Keys per shared-memory stage of the f32 dQ kernel: 64, 32 past d = 56,
+    16 past d = 88, so that two stages (K and V hi/lo, K^T hi/lo) and the
+    64-row Q and dO tiles (hi/lo) fit in 227 KB. A function of d alone, as
+    ``fwd_f32_tile_keys``: the tile bounds the order of a row's sums."""
+    return 64 if d <= 56 else 32 if d <= 88 else 16
+
+
+def bwd_f32_tile_queries(d: int) -> int:
+    """Queries per shared-memory stage of the f32 dK/dV kernel: 32, 16 past
+    d = 72, 8 past d = 112, so that two stages (Q, dO, Q^T, dO^T hi/lo, LSE
+    and delta) and the 64-key K and V tiles (hi/lo) fit in 227 KB. A
+    function of d alone."""
+    return 32 if d <= 72 else 16 if d <= 112 else 8
+
+
+def bwd_f32_tile_rows(kernel: str, bh: int, s: int, d: int, sms: int) -> int:
+    """Rows per CTA of the f32 backward's ``kernel`` ("dq": queries, "dkv":
+    keys; ``s`` their length): 128 (two consumer warpgroups sharing each
+    stage) or 64, by waves as ``fwd_tile_rows``; 64 past
+    ``F32_BWD_WIDE_TILE_MAX_D``."""
+    return 64 if d > F32_BWD_WIDE_TILE_MAX_D[kernel] else _tile_by_waves(bh, s, sms)
 
 
 def bwd_tile_keys(bh: int, sk: int, sms: int) -> int:
@@ -481,7 +513,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, scale):
     """(dQ, dK, dV) of ``flash_attention_fwd``: for bf16 the prep, main and dQ
     convert kernels in turn, on inputs checked once; for f32 delta =
     rowsum(dO * O) (one reduction, as the JAX package takes it outside its
-    kernels) and then the f32 dQ and dK/dV kernels. The plain versions on CPU
+    kernels) and then the f32 dQ and dK/dV kernels (each after its split
+    pass). The plain versions on CPU
     tensors. A dO whose strides the kernels do not take (e.g. an expanded
     gradient) is made contiguous first: a copy, not a fallback."""
     if do.device.type == "cpu":
@@ -506,17 +539,19 @@ def flash_attention_bwd(q, k, v, out, lse, do, scale):
 
 @functools.lru_cache(maxsize=None)
 def _f32_kernels() -> types.SimpleNamespace:
-    """The C entries of ``csrc/flash_attention_f32.cu`` (the backward that
-    runs the dQ or the dK/dV kernel) and ``csrc/flash_attention_fwd_f32.cu``
-    (the forward's split pass and main kernel)."""
-    lib, fwd = build.load(F32_KERNEL), build.load(F32_FWD_KERNEL)
+    """The C entries of ``csrc/flash_attention_fwd_f32.cu`` (the forward's
+    split pass and main kernel) and ``csrc/flash_attention_bwd_f32.cu`` (the
+    backward's split pass, and the dQ or the dK/dV kernel)."""
+    fwd, bwd = build.load(F32_FWD_KERNEL), build.load(F32_BWD_KERNEL)
     ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
     fns = types.SimpleNamespace(split=fwd.pnpi_flash_attention_fwd_f32_split,
                                 fwd=fwd.pnpi_flash_attention_fwd_f32,
-                                bwd=lib.pnpi_flash_attention_bwd_f32)
+                                bwd_split=bwd.pnpi_flash_attention_bwd_f32_split,
+                                bwd=bwd.pnpi_flash_attention_bwd_f32)
     fns.split.argtypes = [ptr] * 3 + [i64] * 6 + [i32] * 5 + [ptr]
     fns.fwd.argtypes = [ptr] * 4 + [i64] * 6 + [i32] * 6 + [f32, ptr]
-    fns.bwd.argtypes = [ptr] * 9 + [i64] * 21 + [i32] * 5 + [f32, i32, ptr]
+    fns.bwd_split.argtypes = [ptr] * 5 + [i64] * 6 + [i32] * 6 + [ptr]
+    fns.bwd.argtypes = [ptr] * 7 + [i64] * 12 + [i32] * 6 + [f32, i32, ptr]
     for fn in vars(fns).values():
         fn.restype = ctypes.c_int
     return fns
@@ -528,6 +563,13 @@ def fwd_f32_smem_bytes(tile_rows: int, d: int) -> int:
     return build.load(F32_FWD_KERNEL).pnpi_flash_attention_fwd_f32_smem_bytes(tile_rows, d)
 
 
+def bwd_f32_smem_bytes(kernel: str, tile_rows: int, d: int) -> int:
+    """Dynamic shared memory of the f32 backward's ``kernel`` ("dq" or
+    "dkv") for (tile_rows, d), as the C side computes it (-1: none)."""
+    return build.load(F32_BWD_KERNEL).pnpi_flash_attention_bwd_f32_smem_bytes(
+        int(kernel == "dkv"), tile_rows, d)
+
+
 def _core_matrices(x: torch.Tensor) -> torch.Tensor:
     """(..., R, K) -> (..., R * K) in the wgmma core-matrix order of the f32
     forward's tiles: 8x4 blocks of 32 contiguous values (8 rows of 4), row
@@ -537,28 +579,68 @@ def _core_matrices(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, r * c)
 
 
+def _split_tiles(x: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, H, S, D) -> (B*H, n, t, D): n = ceil(S / t) tiles of t positions,
+    zero past S."""
+    b, h, s, d = x.shape
+    n = -(-s // t)
+    return torch.nn.functional.pad(x.float(), (0, 0, 0, n * t - s)).reshape(b * h, n, t, d)
+
+
+def _split_transposed(x: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, H, S, D) -> (B*H, n, D, t): the tiles transposed, the positions of
+    each group of 8 in ``F32_KEY_PERM`` order. The permutation as views:
+    slot 4 h + u of a group holds position 2 u + h (an index tensor would be
+    a host-to-device copy that waits for the device)."""
+    tiles = _split_tiles(x, t)
+    bh, n, _, d = tiles.shape
+    tiles = tiles.reshape(bh, n, t // 8, 4, 2, d).transpose(3, 4)
+    return tiles.reshape(bh, n, t, d).transpose(-1, -2)
+
+
+def _split_halves(arrays) -> list:
+    """hi and lo (``tf32_split``) of each tile array, in core-matrix order."""
+    out = []
+    for x in arrays:
+        out.extend(tf32_split(_core_matrices(x.contiguous())))
+    return out
+
+
 def flash_attention_fwd_f32_split_reference(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain version of the f32 forward's split pass: a (B*H, n, 4, KT * D)
     f32 tensor, n = ceil(Sk / KT) tiles of KT = ``fwd_f32_tile_keys(D)`` keys
     (zero past Sk), each K hi, K lo, V^T hi, V^T lo (``tf32_split``) in core-
     matrix order; V^T's rows are head-dim columns, its keys in each group of 8
     in ``F32_KEY_PERM`` order."""
-    b, h, sk, d = k.shape
-    kt = fwd_f32_tile_keys(d)
-    n = -(-sk // kt)
+    kt = fwd_f32_tile_keys(k.shape[3])
+    return torch.stack(_split_halves((_split_tiles(k, kt), _split_transposed(v, kt))), dim=2)
 
-    def tiles(x):
-        x = torch.nn.functional.pad(x.float(), (0, 0, 0, n * kt - sk))
-        return x.reshape(b * h, n, kt, d)
 
-    # F32_KEY_PERM as views: slot 4 h + u of a group holds key 2 u + h (an
-    # index tensor would be a host-to-device copy that waits for the device)
-    vt = tiles(v).reshape(b * h, n, kt // 8, 4, 2, d).transpose(3, 4)
-    vt = vt.reshape(b * h, n, kt, d).transpose(-1, -2)
-    out = []
-    for x in (tiles(k), vt):
-        out.extend(tf32_split(_core_matrices(x.contiguous())))
-    return torch.stack(out, dim=2)
+def flash_attention_bwd_f32_split_reference(x: torch.Tensor, y: torch.Tensor, lse=None,
+                                            delta=None) -> torch.Tensor:
+    """Plain version of the f32 backward's split pass: a (B*H, n, F) f32
+    tensor of n = ceil(S / T) tiles (zero past S). For the dQ kernel (x = K,
+    y = V, no ``lse``/``delta``; T = ``bwd_f32_tile_keys(D)``) each tile is
+    K, V (rows of D) and K^T (rows are head-dim columns, the keys of each
+    group of 8 in ``F32_KEY_PERM`` order), each hi then lo (``tf32_split``)
+    in core-matrix order: F = 6 T D. For the dK/dV kernel (x = Q, y = dO,
+    ``lse`` and ``delta`` the (B, H, Sq) f32 rows; T =
+    ``bwd_f32_tile_queries(D)``) Q, dO, Q^T, dO^T, then the tile's LSE (+inf
+    past Sq, so those queries' P is 0) and delta (0 past Sq): F = 8 T D + 2 T."""
+    b, h, s, d = x.shape
+    dkv = lse is not None
+    t = bwd_f32_tile_queries(d) if dkv else bwd_f32_tile_keys(d)
+    arrays = [_split_tiles(x, t), _split_tiles(y, t), _split_transposed(x, t)]
+    if dkv:
+        arrays.append(_split_transposed(y, t))
+    out = torch.stack(_split_halves(arrays), dim=2)
+    out = out.reshape(out.shape[0], out.shape[1], -1)
+    if not dkv:
+        return out
+    n = out.shape[1]
+    stats = [torch.nn.functional.pad(z.reshape(b * h, s).float(), (0, n * t - s), value=fill)
+             .reshape(b * h, n, t) for z, fill in ((lse, math.inf), (delta, 0.0))]
+    return torch.cat([out, *stats], dim=-1)
 
 
 def _launch_split_f32(k, v):
@@ -605,21 +687,70 @@ def _launch_fwd_f32(q, k, v, scale: float, rows=None):
     return out, lse
 
 
-def _launch_bwd_f32(q, k, v, do, lse, delta, scale: float, dq_only: bool):
-    """One launch of the f32 dQ kernel (``dq_only``) or dK/dV kernel on
-    checked inputs: dQ, or (dK, dV), each a (B, H, S, D) view of a (B, S, H,
-    D) buffer."""
+def _launch_bwd_split_f32(x, y, lse=None, delta=None):
+    """One launch of the f32 backward's split pass on checked inputs: the dQ
+    kernel's (x = K, y = V) or, with ``lse`` and ``delta``, the dK/dV
+    kernel's (x = Q, y = dO)."""
+    b, h, s, d = x.shape
+    dkv = lse is not None
+    t = bwd_f32_tile_queries(d) if dkv else bwd_f32_tile_keys(d)
+    width = t * d * (8 if dkv else 6) + (2 * t if dkv else 0)
+    out = torch.empty((b * h, -(-s // t), width), dtype=torch.float32, device=x.device)
+    _raise_on(_f32_kernels().bwd_split(
+        x.data_ptr(), y.data_ptr(), lse.data_ptr() if dkv else None,
+        delta.data_ptr() if dkv else None, out.data_ptr(), *x.stride()[:3], *y.stride()[:3],
+        b, h, s, d, t, int(dkv), _stream(x)), "f32 split", x)
+    flash_attention_bwd_f32_split.launches += 1
+    return out
+
+
+def flash_attention_bwd_f32_split(x: torch.Tensor, y: torch.Tensor, lse=None,
+                                  delta=None) -> torch.Tensor:
+    """The f32 backward's split pass alone (each f32 backward kernel runs its
+    own before it): the dQ kernel's (x = K, y = V) or, given the (B, H, Sq)
+    ``lse`` and ``delta``, the dK/dV kernel's (x = Q, y = dO); the plain
+    version on CPU tensors."""
+    _no_grad_tracking("flash_attention_bwd_f32_split", x, y)
+    if (lse is None) != (delta is None):
+        raise ValueError("flash backward split: lse and delta come together (the dK/dV "
+                         "kernel's split) or not at all (the dQ kernel's)")
+    if x.device.type == "cpu":
+        return flash_attention_bwd_f32_split_reference(x, y, lse, delta)
+    _check(x, x, y, torch.float32)
+    if lse is not None:
+        _check_stats(x, lse, delta)
+    return _launch_bwd_split_f32(x, y, lse, delta)
+
+
+flash_attention_bwd_f32_split.launches = 0
+
+
+def _launch_bwd_f32(q, k, v, do, lse, delta, scale: float, dq_only: bool, rows=None):
+    """One f32 dQ (``dq_only``) or dK/dV computation on checked inputs: the
+    kernel's split pass, then the kernel with ``rows`` (64 or 128) rows per
+    CTA, or ``bwd_f32_tile_rows``' choice where it is None. dQ, or (dK, dV),
+    each a (B, H, S, D) view of a (B, S, H, D) buffer."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    dq = _heads_last(b, h, sq, d, q) if dq_only else q
-    dk, dv = (k, v) if dq_only else (_heads_last(b, h, sk, d, k), _heads_last(b, h, sk, d, v))
+    kernel = "dq" if dq_only else "dkv"
+    if rows is None:
+        rows = bwd_f32_tile_rows(kernel, b * h, sq if dq_only else sk, d,
+                                 _sm_count(q.device.index))
+    if dq_only:
+        tiles = _launch_bwd_split_f32(k, v)
+        own, out = (q, do), (_heads_last(b, h, sq, d, q),)
+        stats, lengths = (lse.data_ptr(), delta.data_ptr()), (sq, sk)
+    else:
+        tiles = _launch_bwd_split_f32(q, do, lse, delta)
+        own, out = (k, v), (_heads_last(b, h, sk, d, k), _heads_last(b, h, sk, d, v))
+        stats, lengths = (None, None), (sk, sq)
+    o2 = out[-1]  # dV, or dQ again (the dQ kernel writes one output)
     _raise_on(_f32_kernels().bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
-        *dv.stride()[:3], b, h, sq, sk, d, scale, int(dq_only), _stream(q)),
-        "f32 dQ" if dq_only else "f32 dK/dV", q)
-    return dq if dq_only else (dk, dv)
+        own[0].data_ptr(), own[1].data_ptr(), tiles.data_ptr(), *stats, out[0].data_ptr(),
+        o2.data_ptr(), *own[0].stride()[:3], *own[1].stride()[:3], *out[0].stride()[:3],
+        *o2.stride()[:3], b, h, *lengths, d, rows, scale, int(not dq_only), _stream(q)),
+        f"f32 {'dQ' if dq_only else 'dK/dV'} ({rows} rows per CTA)", q)
+    return out[0] if dq_only else out
 
 
 def flash_attention_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -646,8 +777,9 @@ def _check_stats(q, lse, delta) -> None:
 
 def flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, scale):
     """dQ of f32 inputs from the forward's LSE and delta = rowsum(dO * O), each
-    a contiguous (B, H, Sq) f32 tensor: the f32 dQ kernel (one CTA per 64
-    queries walks every key, no atomics), its plain version on CPU tensors."""
+    a contiguous (B, H, Sq) f32 tensor: the f32 dQ kernel (its split pass of
+    K and V, then 3xTF32 wgmma; a CTA's 64 or 128 queries walk every key, no
+    atomics), its plain version on CPU tensors."""
     _no_grad_tracking("flash_attention_bwd_dq_f32", q, k, v, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
@@ -661,8 +793,9 @@ def flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, scale):
 
 def flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, scale):
     """(dK, dV) of f32 inputs from the forward's LSE and delta: the f32 dK/dV
-    kernel (one CTA per 64 keys walks every query, no atomics), its plain
-    version on CPU tensors."""
+    kernel (its split pass of Q, dO, LSE and delta, then 3xTF32 wgmma; a
+    CTA's 64 or 128 keys walk every query, no atomics), its plain version on
+    CPU tensors."""
     _no_grad_tracking("flash_attention_bwd_dkv_f32", q, k, v, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
@@ -678,7 +811,8 @@ flash_attention_fwd_f32.launches = 0
 flash_attention_bwd_dq_f32.launches = 0
 flash_attention_bwd_dkv_f32.launches = 0
 F32_WRAPPERS = (flash_attention_fwd_f32, flash_attention_fwd_f32_split,
-                flash_attention_bwd_dq_f32, flash_attention_bwd_dkv_f32)
+                flash_attention_bwd_dq_f32, flash_attention_bwd_dkv_f32,
+                flash_attention_bwd_f32_split)
 
 
 class FlashAttention(torch.autograd.Function):

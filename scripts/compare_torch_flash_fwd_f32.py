@@ -82,7 +82,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = chip_smoke.card_line()
     print(card, flush=True)
-    build.build([fa.F32_FWD_KERNEL, fa.F32_KERNEL])
+    build.build([fa.F32_FWD_KERNEL])
     old = load_old(args.old)
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -1,6 +1,6 @@
 """Writes ``pnpinversion_tpu_torch/csrc/wgmma_tf32.cuh`` (python3
 scripts/gen_wgmma_tf32.py): the TF32 ``wgmma`` instructions that the f32
-flash forward issues, one inline-asm function per width N, since an asm
+flash kernels issue, one inline-asm function per width N, since an asm
 statement names each of its N / 2 accumulator registers. ``ss`` reads A and B
 from shared memory, ``rs`` A from four registers; both K-major (the only
 layout ``.tf32`` takes), k = 8."""
@@ -9,12 +9,12 @@ from __future__ import annotations
 from pathlib import Path
 
 OUT = Path(__file__).resolve().parents[1] / "pnpinversion_tpu_torch" / "csrc" / "wgmma_tf32.cuh"
-SS_WIDTHS = (32, 64)              # keys per tile of S = Q K^T
-RS_WIDTHS = tuple(range(8, 129, 8))  # head dims of O += P V^T
+SS_WIDTHS = (8, 16, 32, 64)  # keys (or queries) per tile of S = Q K^T, dP = dO V^T
+RS_WIDTHS = tuple(range(8, 129, 8))  # head dims of O += P V, dQ += dS K, ...
 
 HEADER = """\
 // TF32 wgmma (m64nNk8, f32 accumulators) for Hopper (sm_90a): the products of
-// the f32 flash forward (flash_attention_fwd_f32.cu). Written by
+// the f32 flash kernels (flash_attention_{fwd,bwd}_f32.cu). Written by
 // scripts/gen_wgmma_tf32.py; edit that script, not this file.
 //
 // WgmmaTf32<N>::ss: D(64xN) (+)= A(64x8) B(Nx8)^T, A and B K-major in shared

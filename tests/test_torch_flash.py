@@ -257,8 +257,8 @@ def test_kernels_dispatch_by_dtype(monkeypatch, dtype, family):
     monkeypatch.setattr(tflash, "_launch_bwd_dq_convert",
                         launch("bf16 convert", lambda acc, q, *_: torch.empty_like(q)))
     monkeypatch.setattr(tflash, "_launch_bwd_f32", launch(
-        "f32 bwd", lambda q, k, v, *args: torch.empty_like(q) if args[-1] else (
-            torch.empty_like(k), torch.empty_like(v))))
+        "f32 bwd", lambda q, k, v, do, lse, delta, scale, dq_only: torch.empty_like(q)
+        if dq_only else (torch.empty_like(k), torch.empty_like(v))))
     monkeypatch.setattr(tflash, "_check_acc", lambda *_: None)
 
     q, k, v, do = _meta(dtype, (1, 2, 128, 40), (1, 2, 64, 40), (1, 2, 64, 40),
@@ -271,14 +271,17 @@ def test_kernels_dispatch_by_dtype(monkeypatch, dtype, family):
     if family == "f32":
         assert launched == ["f32 fwd", "f32 bwd", "f32 bwd"]
         # the f32 forward's split pass counts in _launch_fwd_f32, stubbed here
+        # and the backward's split passes in _launch_bwd_f32, stubbed too
         assert moved == {"flash_attention_fwd": 0, "flash_attention_fwd_f32": 1,
                          "flash_attention_fwd_f32_split": 0,
-                         "flash_attention_bwd_dq_f32": 1, "flash_attention_bwd_dkv_f32": 1}
+                         "flash_attention_bwd_dq_f32": 1, "flash_attention_bwd_dkv_f32": 1,
+                         "flash_attention_bwd_f32_split": 0}
     else:
         assert launched == ["bf16 fwd", "bf16 prep", "bf16 main", "bf16 convert"]
         assert moved == {"flash_attention_fwd": 1, "flash_attention_fwd_f32": 0,
                          "flash_attention_fwd_f32_split": 0,
-                         "flash_attention_bwd_dq_f32": 0, "flash_attention_bwd_dkv_f32": 0}
+                         "flash_attention_bwd_dq_f32": 0, "flash_attention_bwd_dkv_f32": 0,
+                         "flash_attention_bwd_f32_split": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

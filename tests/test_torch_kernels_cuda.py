@@ -266,21 +266,25 @@ def full_f32(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,sk,d,strided", [
     (1, 4096, 4096, 40, True), (3, 1024, 1024, 80, True), (1, 1000, 77, 40, False),
-    (2, 1000, 1000, 80, True), (1, 1024, 1024, 128, False), (2, 200, 330, 16, False)])
+    (2, 1000, 1000, 80, True), (1, 1024, 1024, 128, False), (2, 200, 330, 16, False),
+    # the backward's tiles: 128-row dK/dV up to d = 48, 16 and 8 queries a stage
+    (2, 1000, 1000, 48, False), (1, 200, 333, 96, False), (1, 77, 300, 120, False)])
 def test_f32_kernels_match_plain_on_cuda(full_f32, b, sq, sk, d, strided):
     """The f32 forward (split pass and 3xTF32 kernel), dQ and dK/dV kernels
-    against their plain versions in full f32: O within 2e-5 of max |O|, LSE
-    within 1e-5, the gradients within 1e-4 of their largest value, and the
-    backward bit-identical run to run. A V^T whose keys were stored out of
-    the order the PV product reads them (F32_KEY_PERM) fails here."""
+    (3xTF32, each after its split pass) against their plain versions in full
+    f32: O within 2e-5 of max |O|, LSE within 1e-5, the gradients within
+    1e-4 of their largest value, and the backward bit-identical run to run.
+    A transposed tile (V^T, K^T, Q^T, dO^T) whose positions were stored out
+    of the order the products read them (F32_KEY_PERM) fails here."""
     q, k, v, do = _f32_inputs(full_f32, b, sq, sk, d, strided)
     scale = d ** -0.5
     before = [fn.launches for fn in tflash.F32_WRAPPERS]
     out, lse = tflash.flash_attention_fwd(q, k, v, scale)
     grads = [tflash.flash_attention_bwd(q, k, v, out, lse, do, scale) for _ in range(2)]
     torch.cuda.synchronize()
-    assert [fn.launches for fn in tflash.F32_WRAPPERS] == [n + m for n, m in zip(before,
-                                                                                 (1, 1, 2, 2))]
+    # forward, its split, two dQ and two dK/dV, each after its own split pass
+    assert [fn.launches for fn in tflash.F32_WRAPPERS] == [
+        n + m for n, m in zip(before, (1, 1, 2, 2, 4))]
     want, lse_want = tflash.flash_attention_reference(q, k, v, scale)
     assert out.dtype == torch.float32
     assert ((out - want).abs().max() / want.abs().max()).item() <= 2e-5
@@ -410,3 +414,61 @@ def test_edict_p2p_unet_call_on_cuda(cuda_device):
         assert all(not torch.equal(eps["edict"][r], eps["plain"][r]) for r in edited)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,dkv", [(4096, 40, False), (4096, 40, True), (1000, 80, False),
+                                     (1000, 80, True), (77, 40, True), (330, 128, False),
+                                     (330, 128, True)])
+def test_f32_bwd_split_matches_plain_on_cuda(cuda_device, s, d, dkv):
+    """The f32 backward's split passes (the dQ kernel's K, V and K^T; the
+    dK/dV kernel's Q, dO, Q^T, dO^T, LSE and delta; hi and lo, in tiles,
+    zero and +inf past the sequence) against their plain versions, bit for
+    bit."""
+    x, _, _, y = _f32_inputs(cuda_device, 2, s, s, d, True)
+    stats = ()
+    if dkv:
+        gen = torch.Generator(device=cuda_device).manual_seed(9)
+        stats = tuple(torch.randn((2, 8, s), generator=gen, device=cuda_device) for _ in range(2))
+    got = tflash.flash_attention_bwd_f32_split(x, y, *stats)
+    assert torch.equal(got, tflash.flash_attention_bwd_f32_split_reference(x, y, *stats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(4096, 40), (1024, 80)])
+def test_f32_backward_repeats_and_is_batch_independent_on_cuda(full_f32, s, d):
+    """The f32 backward repeats bit for bit; batch row 1 of a 2-row call
+    (B.H 16) equals a call on that row alone (B.H 8), and, where d allows
+    both tiles, 64 and 128 rows per CTA give the same bits: no atomics, and
+    a row's sums do not depend on the grid."""
+    q, k, v, do = _f32_inputs(full_f32, 2, s, s, d, True)
+    scale = d ** -0.5
+    out, lse = tflash.flash_attention_fwd(q, k, v, scale)
+    grads = tflash.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    again = tflash.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    one = [x[1:2] for x in (q, k, v, out, lse, do)]
+    small = tflash.flash_attention_bwd(*one, scale)
+    assert all(torch.equal(a[1:2], b) for a, b in zip(grads, small))
+    q1, k1, v1, o1, lse1, do1 = one
+    delta = (do1 * o1).sum(-1).contiguous()
+    for kernel in ("dq", "dkv"):
+        if d <= tflash.F32_BWD_WIDE_TILE_MAX_D[kernel]:
+            r64, r128 = (tflash._launch_bwd_f32(q1, k1, v1, do1, lse1, delta, scale,
+                                                kernel == "dq", r) for r in (64, 128))
+            if kernel == "dq":
+                r64, r128 = (r64,), (r128,)
+            assert all(torch.equal(a, b) for a, b in zip(r64, r128))
+
+
+@pytest.mark.cuda
+def test_f32_backward_refuses_a_tile_that_does_not_fit_on_cuda(full_f32):
+    """128 rows per CTA exist only up to F32_BWD_WIDE_TILE_MAX_D; asked for
+    more, the C entry refuses before launching and the wrapper raises."""
+    q, k, v, do = _f32_inputs(full_f32, 1, 256, 256, 80, False)
+    lse = torch.zeros((1, 8, 256), device=full_f32)
+    for kernel in ("dq", "dkv"):
+        assert tflash.bwd_f32_smem_bytes(kernel, 128, 80) == -1
+        assert tflash.bwd_f32_smem_bytes(kernel, 64, 80) > 0
+        with pytest.raises(RuntimeError, match="f32 dQ" if kernel == "dq" else "f32 dK/dV"):
+            tflash._launch_bwd_f32(q, k, v, do, lse, lse, 0.1, kernel == "dq", 128)
