@@ -56,7 +56,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    carry, ``BatchedEDICT`` on 4 images at 3 for both methods (each image
    within 2 uint8 levels of the editor's), and the strength-1.0 round trip
    in both precisions, which fails unless the float64 carry's MSE is below
-   the f32 one's by 10x;
+   the f32 one's by 10x; then pix2pix-zero: the BLIP captioner at full
+   width (ViT-B/16 at 384^2, the BERT-base decoder, 3 beams, a generated
+   vocab) captions 4 images (timed; one decoder step and the vision tokens
+   against a CPU copy), one counted edit of each method at 5 steps with the
+   caption injected (the map-loss gradient runs the bf16 backward at all ten
+   flash sites) and ``BatchedPix2PixZero`` on the 4 images; StyleDiffusion:
+   one counted ``stylediffusion+p2p`` edit at 3 steps and 3 inner steps (its
+   training runs the backward at nine sites) and ``BatchedStyleDiffusion``
+   on the 4 images; then, the SD1.4 pipeline freed, Blended Latent Diffusion
+   on its own SD2.1 pipeline (64-dim heads): one counted 50-step edit and
+   ``BatchedBLD`` on 4 images, images kept in place unmoved when the others
+   change;
 8. the f32 pipeline (``SDPipeline.create(..., dtype=torch.float32)``, full
    f32): one counted directinversion+p2p edit and one counted
    null-text-inversion+p2p edit, which launch only the f32 kernels, a device
@@ -138,6 +149,12 @@ FLASH_CASES = [
     # and its own, concatenated (Sk = 2 Sq); q strided, k/v contiguous ("q")
     ("union_64x64", 4, 8, 4096, 8192, 40, "q", True),
     ("union_32x32", 4, 8, 1024, 2048, 80, "q", True),
+    # SD2.1 (Blended Latent Diffusion): 64-dim heads, 5 at 64^2 and 10 at
+    # 32^2; 2 rows an image, 8 at 4 images
+    ("sd21_64x64", 2, 5, 4096, 4096, 64, True, True),
+    ("sd21_32x32", 2, 10, 1024, 1024, 64, True, True),
+    ("sd21_batch4_64x64", 8, 5, 4096, 4096, 64, True, True),
+    ("sd21_batch4_32x32", 8, 10, 1024, 1024, 64, True, True),
 ] + EDGE_CASES
 # the f32 paths: the f32 pipeline (SDPipeline.create(..., dtype=torch.float32))
 # on one image, 1 row in inversion and null-text's inner loop, 3 in the
@@ -176,6 +193,8 @@ FLASH_BWD_CASES = [
     ("nulltext_b4_64x64", 4, 8, 4096, 4096, 40, True, True),
     ("nulltext_b4_32x32", 4, 8, 1024, 1024, 80, True, True),
     ("nulltext_b8_64x64", 8, 8, 4096, 4096, 40, True, True),
+    # pix2pix-zero's batched class at 4 images differentiates 8 rows
+    ("p2z_b4_32x32", 8, 8, 1024, 1024, 80, True, True),
 ] + EDGE_CASES
 # the f32 null-text inner loop (one UNet row) and the edge cases
 F32_FLASH_BWD_CASES = [
@@ -2250,6 +2269,368 @@ def eval_phase(batch_out: dict, calc=None) -> dict:
             "first_row_card_cpu": values, "cpu_row_s": t_host}
 
 
+# ---------------------------------------------------------------------------
+# the last three editing families: Blended Latent Diffusion (SD2.1),
+# pix2pix-zero (with its BLIP captioner) and StyleDiffusion
+# ---------------------------------------------------------------------------
+
+BLD_STEPS = 50  # DDIM steps of the counted BLD edit and batch (38 UNet calls)
+P2Z_STEPS = 5  # of the counted pix2pix-zero edits and batch
+SD_STEPS = 3  # of the counted StyleDiffusion edit and batch
+SD_INNER = 3  # StyleDiffusion's inner Adam steps (the editor's default is 100)
+# the flash sites whose backward runs: all ten in pix2pix-zero's map-loss
+# gradient with respect to the latent; nine in StyleDiffusion's training,
+# whose networks enter at the cross-attention (after the first self site)
+P2Z_BWD_SITES = FLASH_SITES
+SD_BWD_SITES = BWD_SITES
+
+
+def _discs(n: int, size: int, seed: int) -> np.ndarray:
+    """n {0, 1} disc masks (size, size), each of its own centre and radius."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:size, :size]
+    return np.stack([((yy - rng.uniform(0.3, 0.7) * size) ** 2 + (xx - rng.uniform(0.3, 0.7)
+                                                                  * size) ** 2
+                      < (rng.uniform(0.15, 0.3) * size) ** 2).astype(np.float32)
+                     for _ in range(n)])
+
+
+def _check_grad_launches(name: str, counts: dict, fwd_calls: int, bwd_sites: int,
+                         inner: tuple) -> int:
+    """A counted run's launches against the code's own count: one B1 launch
+    per flash site per UNet call (``fwd_calls``, plus one per backward pass),
+    one of each backward kernel per differentiated site per backward pass,
+    K backward passes with inner[0] <= K <= inner[1]. Returns K."""
+    k = counts["main"] // bwd_sites
+    ok = (counts["prep"] == counts["main"] == counts["convert"] == bwd_sites * k
+          and inner[0] <= k <= inner[1] and counts["fwd"] == FLASH_SITES * (fwd_calls + k))
+    if not ok:
+        raise AssertionError(f"{name}: launches {counts}, want {FLASH_SITES} x ({fwd_calls} + K) "
+                             f"forward and {bwd_sites} x K of each backward kernel, "
+                             f"K in {inner}")
+    return k
+
+
+def _panel_diffs(batched: dict, singles: list, size: int) -> dict:
+    """uint8 (max, mean) difference of each batched image's panels from the
+    single-image editor's strip (recon panel 2, edit panel 3)."""
+    cols = {"recon": 2, "edit": 3}
+    return {f"{name}_vs_single_max_mean": [
+        _diff(got, st[:, cols[name] * size:(cols[name] + 1) * size])
+        for got, st in zip(images, singles)] for name, images in batched.items()}
+
+
+def bld_phase() -> dict:
+    """Blended Latent Diffusion on its own SD2.1-base pipeline (full width:
+    64-dim heads, the 1024-wide OpenCLIP text tower; random weights from seed
+    0, bf16, 512^2), made once the SD1.4 pipeline is freed: one counted edit
+    at ``BLD_STEPS`` (after a warm-up at 2) with a disc mask, timed; then
+    ``BatchedBLD`` on 4 images (a mask and a target prompt each) at
+    ``BLD_STEPS``: seconds per image, launches, peak memory, each image's
+    edit against the single-image editor's, and images kept in place
+    unmoved when the others change (at ``INDEPENDENCE_STEPS``)."""
+    from pnpinversion_tpu_torch.configs import SD21
+    from pnpinversion_tpu_torch.editors.bld_editor import (
+        METHOD,
+        BlendedLatentDiffusionEditor,
+        bld_unet_calls,
+        latent_mask,
+    )
+    from pnpinversion_tpu_torch.parallel.sweep import BatchedBLD
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+    pipe, t_create = _sync_time(lambda: SDPipeline.create(SD21, seed=0,
+                                                          num_ddim_steps=BLD_STEPS))
+    if pipe.dtype != torch.bfloat16 or pipe.unet.sites[0][0].heads != 5:
+        raise AssertionError(f"an SD2.1 pipeline: bf16, 5 heads at 64^2, got {pipe.dtype}, "
+                             f"{pipe.unet.sites[0][0].heads}")
+    size = pipe.config.image_size
+    image = _random_images(3131, size)
+    imgs = np.stack([image() for _ in range(BATCH)])
+    others = np.stack([image() for _ in range(BATCH)])
+    masks = _discs(BATCH, size, 3132)
+    targets = [tar for _, tar in CAKE_PROMPTS[:BATCH]]
+    calls = bld_unet_calls(BLD_STEPS)
+    editor = BlendedLatentDiffusionEditor(pipe)
+    _, t_warm = _sync_time(lambda: BlendedLatentDiffusionEditor(_pipe_at(pipe, 2))(
+        METHOD, imgs[0], masks[0], targets[0]))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    strip, t_edit = _sync_time(lambda: editor(METHOD, imgs[0], masks[0], targets[0]))
+    counts, peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+    _check_strip(strip)
+    _check_launches(METHOD, counts, 1, calls)
+    if strip[:, 2 * size:3 * size].any() or strip[:, 3 * size:].std() == 0.0:
+        raise AssertionError("BLD: the reconstruction panel is not zeros or the edit is constant")
+
+    lat_masks = np.stack([latent_mask(m, pipe.latent_size) for m in masks])
+    cond = torch.stack([pipe.encode_prompt([t]) for t in targets])
+
+    def batch(p, images, c=cond):
+        return BatchedBLD(p).edit_batch(images, lat_masks, c, 7.5)
+
+    _, t_warm_batch = _sync_time(lambda: batch(_pipe_at(pipe, 2), imgs))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    edits, t_batch = _sync_time(lambda: batch(pipe, imgs))
+    batch_counts, batch_peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+    _check_launches(f"batched {METHOD}", batch_counts, 1, calls)
+    if edits.shape != (BATCH, size, size, 3) or min(float(e.std()) for e in edits) == 0.0:
+        raise AssertionError(f"batched BLD: {edits.shape}, or an edit is constant")
+    singles = [strip] + [editor(METHOD, imgs[i], masks[i], targets[i]) for i in range(1, BATCH)]
+    diffs = _panel_diffs({"edit": edits}, singles, size)
+
+    kept = (1, 3)
+    swapped = np.stack([imgs[i] if i in kept else others[i] for i in range(BATCH)])
+    short = _pipe_at(pipe, INDEPENDENCE_STEPS)
+    first = batch(short, imgs)
+    floor = max(_diff(a, b)[0] for a, b in zip(first, batch(short, imgs)))
+    apart = max(_diff(first[i], b)[0] for i, b in zip(kept, batch(short, swapped)[list(kept)]))
+    if apart > floor:
+        raise AssertionError(f"batched BLD: images kept in place moved by {apart} uint8 levels "
+                             f"when the others changed (floor {floor})")
+    out = {"create_s": t_create, "steps": BLD_STEPS, "unet_calls": calls,
+           "warmup_edit_2_steps_s": t_warm, "edit_s_per_image": t_edit, "launches": counts,
+           "peak_mem_gib": peak, "edit_panel_std": float(strip[:, 3 * size:].std()),
+           "batch": BATCH, "warmup_batch_2_steps_s": t_warm_batch, "batch_s": t_batch,
+           "batch_s_per_image": t_batch / BATCH,
+           "single_over_batched_per_image": t_edit * BATCH / t_batch,
+           "batch_launches": batch_counts, "batch_peak_mem_gib": batch_peak,
+           "uint8_diff_vs_single_editor": diffs, "kept_images_run_to_run_max": floor,
+           "kept_images_others_replaced_max": apart}
+    print("bld", json.dumps(out), flush=True)
+    del pipe, editor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _blip_vocab(path: str, vocab_size: int) -> str:
+    """A BERT-layout vocab.txt of generated tokens: [PAD] 0, [unused*],
+    [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, the prompt's words, words
+    and "##" pieces, then [DEC] and [ENC] at the end (BLIP's two added
+    tokens, [DEC] its decoder's start id)."""
+    import os
+
+    words = (["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                  "[MASK]", "a", "picture", "of"])
+    n = vocab_size - 2 - len(words)
+    words += [f"w{i}" if i % 2 == 0 else f"##p{i}" for i in range(n)] + ["[DEC]", "[ENC]"]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(words) + "\n")
+    return path
+
+
+def blip_phase(imgs: np.ndarray) -> tuple:
+    """The BLIP captioner at full width (ViT-B/16 at 384^2, 577 tokens; the
+    BERT-base decoder with cross-attention; random weights from seed 0, f32;
+    a generated 30,524-token vocab): ``caption_batch`` of the images with 3
+    beams, timed twice (the same captions both times), and one decoder step's
+    logits and the vision tokens of image 0 against a CPU copy (TF32 off on
+    the card). Returns (numbers, captions)."""
+    import copy
+    import os
+
+    from pnpinversion_tpu_torch.models.blip import BLIP_VIT_B16_384, BlipCaptioner, BlipTextConfig
+    from pnpinversion_tpu_torch.utils.tokenizer import BertWordPieceTokenizer
+
+    cfg = BlipTextConfig()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tok = BertWordPieceTokenizer(_blip_vocab(os.path.join(here, "build", "blip_vocab.txt"),
+                                             cfg.vocab_size))
+    if tok.sep_token_id != cfg.sep_token_id or tok.vocab["[DEC]"] != cfg.bos_token_id:
+        raise AssertionError("the generated vocab does not match BLIP's special ids")
+    cap, t_create = _sync_time(lambda: BlipCaptioner.random_init(0, tok, BLIP_VIT_B16_384, cfg))
+    _, t_warm = _sync_time(lambda: cap.caption_batch(imgs[:1]))
+    torch.cuda.reset_peak_memory_stats()
+    captions, t_cap = _sync_time(lambda: cap.caption_batch(imgs))
+    again, t_again = _sync_time(lambda: cap.caption_batch(imgs))
+    if again != captions or len(captions) != len(imgs) or not all(captions):
+        raise AssertionError(f"BLIP captions: {captions} then {again}")
+    with torch.inference_mode():
+        tokens = cap.image_tokens(imgs[:1])
+        ids = torch.as_tensor([[cfg.bos_token_id] + cap.prompt_ids()], device=tokens.device)
+        logits = cap.decoder(ids, tokens)
+        cpu_vision = copy.deepcopy(cap.vision).cpu()
+        cpu_decoder = copy.deepcopy(cap.decoder).cpu()
+        cpu_tokens = BlipCaptioner(cpu_vision, cpu_decoder, tok).image_tokens(imgs[:1])
+        cpu_logits = cpu_decoder(ids.cpu(), tokens.cpu())
+    errs = {"vision_tokens": _rel(tokens.cpu(), cpu_tokens),
+            "decoder_logits": _rel(logits.cpu(), cpu_logits)}
+    if tokens.shape != (1, 577, 768) or max(errs.values()) > EVAL_CPU_RTOL:
+        raise AssertionError(f"BLIP on the card vs the CPU: {tuple(tokens.shape)}, {errs}")
+    out = {"create_s": t_create, "warmup_caption_x1_s": t_warm,
+           f"caption_batch_x{len(imgs)}_s": t_cap, "again_s": t_again,
+           "s_per_image": t_cap / len(imgs), "num_beams": cap.num_beams,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "card_vs_cpu_rel_err": errs, "caption_words": [len(c.split()) for c in captions]}
+    del cap, cpu_vision, cpu_decoder
+    torch.cuda.empty_cache()
+    return out, captions
+
+
+def pix2pix_zero_phase(pipe) -> dict:
+    """pix2pix-zero at full SD1.4 width on 4 images: BLIP captions them
+    (``blip_phase``); one counted edit of each method at ``P2Z_STEPS``
+    through the editor with the image's caption injected (after a warm-up at
+    2), timed per phase (the regularised inversion, of which the noise
+    regularisation, and the edit), peak memory; ``BatchedPix2PixZero`` on the
+    4 images (their captions and a prompt pair each) at ``P2Z_STEPS``:
+    seconds per image, launches, peak memory, each image's panels against
+    the single-image editor's. The map-loss gradient runs the bf16 backward
+    at all ten flash sites."""
+    from pnpinversion_tpu_torch.editors import pix2pix_zero_editor as ped
+    from pnpinversion_tpu_torch.inversion import pix2pix_zero as p2z
+    from pnpinversion_tpu_torch.parallel.sweep import BatchedPix2PixZero
+
+    size = pipe.config.image_size
+    image = _random_images(2727, size)
+    imgs = np.stack([image() for _ in range(BATCH)])
+    prompts = CAKE_PROMPTS[:BATCH]
+    blip, captions = blip_phase(imgs)
+    out = {"blip": blip, "steps": P2Z_STEPS}
+    short = _pipe_at(pipe, P2Z_STEPS)
+    editor = ped.Pix2PixZeroEditor(short)
+    # per step: 1 inversion call, then 3 of 2 rows (the reconstruction, the
+    # map loss's forward, the edit) and one backward: 3 calls and K = T
+    # backward passes, each after its own forward
+    calls, k = 3 * P2Z_STEPS, (P2Z_STEPS, P2Z_STEPS)
+    batched = ped.METHODS[1]
+    for method in ped.METHODS:
+        _, t_warm = _sync_time(lambda: ped.Pix2PixZeroEditor(_pipe_at(pipe, 2))(
+            method, imgs[0], *prompts[0], caption=captions[0]))
+        seconds = {}
+        restore = _timed_calls([(ped, "p2z_invert"), (ped, "p2z_edit"),
+                                (p2z, "regularize_noise")], seconds)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        try:
+            strip, t_edit = _sync_time(lambda: editor(method, imgs[0], *prompts[0],
+                                                      caption=captions[0]))
+        finally:
+            restore()
+        counts, peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+        _check_strip(strip)
+        _check_grad_launches(method, counts, calls, P2Z_BWD_SITES, k)
+        if method == batched:
+            singles = [strip] + [editor(method, imgs[i], *prompts[i], caption=captions[i])
+                                 for i in range(1, BATCH)]
+        out[method] = {"warmup_edit_2_steps_s": t_warm, "edit_s_per_image": t_edit,
+                       "phase_s": seconds, "launches": counts, "unet_calls": calls + k[0],
+                       "backward_passes": P2Z_STEPS, "peak_mem_gib": peak,
+                       "edit_panel_std": float(strip[:, 3 * size:].std())}
+    cond = torch.stack([pipe.encode_prompt([c]) for c in captions])
+    dirs = torch.stack([ped.construct_direction(pipe, [s], [t]) for s, t in prompts])
+    method = batched
+    _, t_warm_batch = _sync_time(lambda: BatchedPix2PixZero(_pipe_at(pipe, 2)).edit_batch(
+        method, imgs, cond, dirs))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    (recon, edits), t_batch = _sync_time(lambda: BatchedPix2PixZero(short).edit_batch(
+        method, imgs, cond, dirs))
+    batch_counts, batch_peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+    _check_grad_launches(f"batched {method}", batch_counts, calls, P2Z_BWD_SITES, k)
+    for name, x in (("recon", recon), ("edit", edits)):
+        if x.shape != (BATCH, size, size, 3) or min(float(i.std()) for i in x) == 0.0:
+            raise AssertionError(f"batched {method} {name}: {x.shape}, or an image is constant")
+    out[f"batched {method}"] = {
+        "batch": BATCH, "warmup_batch_2_steps_s": t_warm_batch, "batch_s": t_batch,
+        "batch_s_per_image": t_batch / BATCH,
+        "single_over_batched_per_image": out[method]["edit_s_per_image"] * BATCH / t_batch,
+        "batch_launches": batch_counts, "batch_peak_mem_gib": batch_peak,
+        "uint8_diff_vs_single_editor": _panel_diffs({"recon": recon, "edit": edits},
+                                                    singles, size)}
+    print("pix2pix_zero", json.dumps(out), flush=True)
+    return out
+
+
+def stylediffusion_phase(pipe) -> dict:
+    """StyleDiffusion at full SD1.4 width (the CLIP ViT-B/16 image tokens,
+    random weights from seed 42, f32) on 4 images with a cake prompt pair
+    each: one counted ``stylediffusion+p2p`` edit at ``SD_STEPS`` with
+    ``SD_INNER`` inner steps (after a warm-up at 2 and 1), timed per phase
+    (the inversion with its maps, the training and its seconds per inner
+    step, the two passes), peak memory; then ``BatchedStyleDiffusion`` on the
+    4 images at the same settings: seconds per image, launches, peak memory,
+    each image's panels against the single-image editor's. The training runs
+    the bf16 backward at the nine sites after the first cross-attention."""
+    from pnpinversion_tpu_torch.control.p2p import stack_tensors
+    from pnpinversion_tpu_torch.editors import stylediffusion_editor as sde
+    from pnpinversion_tpu_torch.inversion.stylediffusion import inner_steps_schedule
+    from pnpinversion_tpu_torch.parallel.sweep import BatchedStyleDiffusion
+
+    size = pipe.config.image_size
+    image = _random_images(5151, size)
+    imgs = np.stack([image() for _ in range(BATCH)])
+    prompts = CAKE_PROMPTS[:BATCH]
+    short = _pipe_at(pipe, SD_STEPS)
+    clip, t_clip = _sync_time(lambda: sde.make_clip_vision(pipe.device))
+    editor = sde.StyleDiffusionEditor(short, clip)
+    method = sde.METHOD
+    _, t_warm = _sync_time(lambda: sde.StyleDiffusionEditor(_pipe_at(pipe, 2), clip)(
+        method, imgs[0], *prompts[0], num_inner_steps=1))
+    most = int(inner_steps_schedule(SD_STEPS, SD_INNER).sum())
+    # UNet calls per step besides the inner ones: inversion, the uncond eps,
+    # the advance, the reconstruction and the edit
+    calls = 5 * SD_STEPS
+    seconds = {}
+    restore = _timed_calls([(sde, "ddim_invert_with_maps"), (sde, "train_mappers"),
+                            (sde, "guidance_forward"), (sde, "image_tokens")], seconds)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    try:
+        strip, t_edit = _sync_time(lambda: editor(method, imgs[0], *prompts[0],
+                                                  num_inner_steps=SD_INNER))
+    finally:
+        restore()
+    counts, peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+    _check_strip(strip)
+    inner = _check_grad_launches(method, counts, calls, SD_BWD_SITES, (SD_STEPS, most))
+    singles = [strip] + [editor(method, imgs[i], *prompts[i], num_inner_steps=SD_INNER)
+                         for i in range(1, BATCH)]
+    out = {"steps": SD_STEPS, "num_inner_steps": SD_INNER, "clip_create_s": t_clip,
+           method: {"warmup_edit_2_steps_1_inner_s": t_warm, "edit_s_per_image": t_edit,
+                    "phase_s": seconds, "launches": counts, "unet_calls": calls + inner,
+                    "inner_steps_total": inner,
+                    "training_s_per_inner_step": seconds["train_mappers"] / inner,
+                    "peak_mem_gib": peak, "edit_panel_std": float(strip[:, 3 * size:].std())}}
+
+    controls = [sde.stylediffusion_p2p(short, list(p)) for p in prompts]
+    if len({c.spec for c, _ in controls}) != 1:
+        raise AssertionError("the images' prompts give different StyleDiffusion P2P specs")
+    cond_src = torch.stack([pipe.encode_prompt([s]) for s, _ in prompts])
+    cond2 = torch.stack([pipe.encode_prompt(list(p)) for p in prompts])
+    tensors = stack_tensors([t for _, t in controls])
+
+    def batch(p, k):
+        return BatchedStyleDiffusion(p, clip, num_inner_steps=k).edit_batch(
+            controls[0][0].spec, imgs, cond_src, cond2, tensors)
+
+    _, t_warm_batch = _sync_time(lambda: batch(_pipe_at(pipe, 2), 1))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    (recon, edits), t_batch = _sync_time(lambda: batch(short, SD_INNER))
+    batch_counts, batch_peak = _counts(), torch.cuda.max_memory_allocated() / 2**30
+    batch_inner = _check_grad_launches(f"batched {method}", batch_counts, calls, SD_BWD_SITES,
+                                       (SD_STEPS, most))
+    for name, x in (("recon", recon), ("edit", edits)):
+        if x.shape != (BATCH, size, size, 3) or min(float(i.std()) for i in x) == 0.0:
+            raise AssertionError(f"batched {method} {name}: {x.shape}, or an image is constant")
+    out[f"batched {method}"] = {
+        "batch": BATCH, "warmup_batch_2_steps_1_inner_s": t_warm_batch, "batch_s": t_batch,
+        "batch_s_per_image": t_batch / BATCH,
+        "single_over_batched_per_image": t_edit * BATCH / t_batch,
+        "batch_launches": batch_counts, "inner_steps_total": batch_inner,
+        "batch_peak_mem_gib": batch_peak,
+        "uint8_diff_vs_single_editor": _panel_diffs({"recon": recon, "edit": edits}, singles,
+                                                    size)}
+    print("stylediffusion", json.dumps(out), flush=True)
+    del clip, editor
+    torch.cuda.empty_cache()
+    return out
+
+
 BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
 F32_FWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_fwd_f32.cu"
 F32_BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd_f32.cu"
@@ -2408,9 +2789,12 @@ def main() -> int:
     families = families_phase(pipe)
     masactrl_controls = masactrl_controls_phase(pipe)
     edict = edict_phase(pipe)
+    pix2pix_zero = pix2pix_zero_phase(pipe)
+    stylediffusion = stylediffusion_phase(pipe)
     del pipe
-    gc.collect()  # free it before the f32 phases read their peak memory
+    gc.collect()  # free it before the SD2.1 and f32 phases read their peak memory
     torch.cuda.empty_cache()
+    bld = bld_phase()
     f32_path = f32_path_phase()
     print("f32_path_summary", json.dumps(f32_path), flush=True)
     instruct = instruct_phase()
@@ -2439,6 +2823,16 @@ def main() -> int:
                 f32_by_path[f"{row['steps']} steps: {name}"] = row[key]["fwd"]
     for name, row in masactrl_controls.items():
         fwd_by_path[f"one UNet call, MasaCtrl {name}"] = row["launches"]
+    fwd_by_path[f"{BLD_STEPS} steps: blended-latent-diffusion"] = bld["launches"]["fwd"]
+    fwd_by_path[f"batched blended-latent-diffusion x{BATCH}"] = bld["batch_launches"]["fwd"]
+    for steps, rows in ((P2Z_STEPS, pix2pix_zero), (SD_STEPS, stylediffusion)):
+        for method, row in rows.items():
+            if not isinstance(row, dict) or not ("launches" in row or "batch_launches" in row):
+                continue
+            batched = method.startswith("batched")
+            counts = row["batch_launches" if batched else "launches"]
+            name = f"{steps} steps: {method}" + (f" x{BATCH}" if batched else "")
+            fwd_by_path[name], bwd_by_path[name] = counts["fwd"], counts["main"]
     for prefix, rows in ((f"{VARIANT_STEPS} steps: ", variants),
                          ("batched x2, 3 steps: ", batched_variants)):
         for method, row in rows.items():

@@ -3,7 +3,8 @@
 
 ``SD14`` mirrors the architecture of "CompVis/stable-diffusion-v1-4":
 UNet2DConditionModel / AutoencoderKL / CLIPTextModel (ViT-L/14 text tower).
-``IP2P`` is SD1.4 with an 8-channel UNet input (InstructPix2Pix,
+``SD21`` is SD2.1-base (Blended Latent Diffusion's model): the same UNet
+topology with 64-dim heads and a 1024-wide OpenCLIP text tower. ``IP2P`` is SD1.4 with an 8-channel UNet input (InstructPix2Pix,
 InstructDiffusion). ``TINY`` is a shape-compatible miniature for fast CPU
 tests.
 """
@@ -82,6 +83,16 @@ SD14_UNET = UNetConfig()
 SD14_VAE = VAEConfig()
 SD14_TEXT = CLIPTextConfig()
 SD14 = StableDiffusionConfig(unet=SD14_UNET, vae=SD14_VAE, text=SD14_TEXT, name="sd14")
+
+# SD2.1-base: the same UNet topology with 64-dim heads per level (5, 10, 20,
+# 20 heads) and the 1024-dim OpenCLIP context
+SD21_UNET = UNetConfig(
+    block_out_channels=(320, 640, 1280, 1280),
+    head_dim=64,
+    context_dim=1024,
+)
+SD21_TEXT = CLIPTextConfig(vocab_size=49408, width=1024, layers=23, heads=16, activation="gelu")
+SD21 = StableDiffusionConfig(unet=SD21_UNET, vae=SD14_VAE, text=SD21_TEXT, name="sd21")
 
 # InstructPix2Pix-style edit-conditioned UNet: 8 input channels (4 latent + 4
 # image-conditioning channels, concatenated)

@@ -21,6 +21,7 @@ from pnpinversion_tpu_torch.configs import (
     UNetConfig,
     VAEConfig,
 )
+from pnpinversion_tpu_torch.models.blip import BlipTextConfig, BlipTextDecoder
 from pnpinversion_tpu_torch.models.clip_text import CLIPTextModel
 from pnpinversion_tpu_torch.models.lpips import LPIPS
 from pnpinversion_tpu_torch.models.unet import UNet
@@ -176,6 +177,36 @@ def vit_state_dict(params, config: ViTConfig) -> StateDict:
     return sd
 
 
+def blip_decoder_state_dict(params) -> StateDict:
+    """The JAX BLIP decoder tree in the port's names (the tree's own)."""
+    sd: StateDict = {"word_embedding": np.asarray(params["word_embedding"]),
+                     "position_embedding": np.asarray(params["position_embedding"])}
+    _norm(sd, "embed_norm", params["embed_norm"])
+    for i, lp in enumerate(params["layers"]):
+        for k, p in lp.items():
+            (_norm if k.endswith("norm") else _lin)(sd, f"layers.{i}.{k}", p)
+    _lin(sd, "cls_dense", params["cls_dense"])
+    _norm(sd, "cls_norm", params["cls_norm"])
+    _lin(sd, "cls_decoder", params["cls_decoder"])
+    return sd
+
+
+def stylediffusion_mapper_from_jax(params, device=None) -> Dict[str, torch.Tensor]:
+    """A JAX StyleDiffusion mapper tree (stacked over the steps (T, ...), or
+    one step's) -> the port's flat dict of f32 tensors for one image, with
+    the leading image axis: (1, T, ...) or (1, ...)."""
+    flat = {}
+    for name in ("conv_start", "conv_end"):
+        for k in ("kernel", "bias"):
+            flat[f"{name}.{k}"] = params[name][k]
+    for b, blk in enumerate(params["blocks"]):
+        for k in ("kernel", "bias"):
+            flat[f"blocks.{b}.conv.{k}"] = blk["conv"][k]
+        flat[f"blocks.{b}.bn_scale"], flat[f"blocks.{b}.bn_bias"] = blk["bn_scale"], blk["bn_bias"]
+    return {k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)[None]
+            for k, v in flat.items()}
+
+
 def lpips_state_dict(params) -> StateDict:
     sd: StateDict = {}
     _conv(sd, "conv0", params["conv0"])
@@ -212,8 +243,8 @@ def _load(module: torch.nn.Module, sd: StateDict) -> torch.nn.Module:
 def from_jax_params(params: Dict[str, Any], config):
     """JAX param tree (numpy leaves) -> the port's module(s) on the CPU, in f32.
 
-    config: a UNetConfig, VAEConfig, CLIPTextConfig or ViTConfig gives that
-    one module; a StableDiffusionConfig (params {'unet', 'vae', 'text'}) gives
+    config: a UNetConfig, VAEConfig, CLIPTextConfig, ViTConfig or
+    BlipTextConfig (the BLIP decoder) gives that one module; a StableDiffusionConfig (params {'unet', 'vae', 'text'}) gives
     a dict of all three."""
     if isinstance(config, StableDiffusionConfig):
         return {"unet": from_jax_params(params["unet"], config.unet),
@@ -228,6 +259,8 @@ def from_jax_params(params: Dict[str, Any], config):
             module, sd = CLIPTextModel(config), clip_text_state_dict(params)
         elif isinstance(config, ViTConfig):
             module, sd = ViT(config), vit_state_dict(params, config)
+        elif isinstance(config, BlipTextConfig):
+            module, sd = BlipTextDecoder(config), blip_decoder_state_dict(params)
         else:
             raise TypeError(f"no module for config {type(config).__name__}")
     return _load(module, sd)

@@ -1,9 +1,12 @@
 """AutoencoderKL, the SD VAE (port of ``pnpinversion_tpu/models/vae.py``),
 with diffusers' names. The editing path uses the posterior mean (scaled by
-0.18215, or unscaled) and the decoder. Public functions take and return NHWC
+0.18215, or unscaled), or a posterior sample on given noise (pix2pix-zero),
+and the decoder. Public functions take and return NHWC
 tensors.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -103,10 +106,9 @@ class VAE(nn.Module):
         self.quant_conv = Conv2d(2 * lat, 2 * lat, 1)
         self.post_quant_conv = Conv2d(lat, lat, 1)
 
-    def encode(self, image: torch.Tensor, scale: bool = True) -> torch.Tensor:
-        """image (B, H, W, 3) in [-1, 1] -> posterior mean (B, h, w, 4), times
-        the scaling factor unless ``scale`` is False (the unscaled mean is the
-        instruction editors' image conditioning)."""
+    def encode_moments(self, image: torch.Tensor) -> tuple:
+        """image (B, H, W, 3) in [-1, 1] -> the posterior's (mean, logvar),
+        each (B, h, w, 4) and unscaled, logvar clipped to [-30, 20]."""
         enc = self.encoder
         h = enc.conv_in(image.permute(0, 3, 1, 2))
         for blk in enc.down_blocks:
@@ -116,10 +118,20 @@ class VAE(nn.Module):
                 h = blk.downsamplers[0].conv(F.pad(h, (0, 1, 0, 1)))
         h = enc.mid_block(h)
         h = enc.conv_out(silu(enc.conv_norm_out(h)))
-        mean = self.quant_conv(h)[:, : self.config.latent_channels]
-        if scale:
-            mean = mean * self.config.scaling_factor
-        return mean.permute(0, 2, 3, 1)
+        mean, logvar = self.quant_conv(h).permute(0, 2, 3, 1).chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def encode(self, image: torch.Tensor, scale: bool = True,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """image (B, H, W, 3) in [-1, 1] -> the posterior mean (B, h, w, 4),
+        or with ``noise`` (B, h, w, 4) the posterior sample
+        mean + exp(logvar / 2) * noise; times the scaling factor unless
+        ``scale`` is False (the unscaled mean is the instruction editors'
+        image conditioning)."""
+        z, logvar = self.encode_moments(image)
+        if noise is not None:
+            z = z + torch.exp(0.5 * logvar) * noise.to(z.dtype)
+        return z * self.config.scaling_factor if scale else z
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """scaled latents (B, h, w, 4) -> image (B, H, W, 3) in [-1, 1]."""

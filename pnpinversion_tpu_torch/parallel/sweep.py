@@ -1,7 +1,8 @@
 """Batched editing: N images as one leading batch on one GPU (port of
 ``pnpinversion_tpu/parallel/sweep.py``'s ``BatchedDirectInversionP2P``,
-``BatchedMasaCtrl``, ``BatchedPnP``, ``BatchedEditFriendly``, ``BatchedEDICT``
-and ``BatchedInstruct``, without their device mesh).
+``BatchedMasaCtrl``, ``BatchedPnP``, ``BatchedEditFriendly``, ``BatchedEDICT``,
+``BatchedInstruct``, ``BatchedBLD``, ``BatchedPix2PixZero`` and
+``BatchedStyleDiffusion``, without their device mesh).
 
 Where the JAX package ``vmap``s a one-image pipeline over an image axis and
 shards it over a mesh, here the N images' UNet rows go through one UNet call
@@ -32,6 +33,7 @@ from pnpinversion_tpu_torch.control.edict_p2p import EdictP2PControl
 from pnpinversion_tpu_torch.control.masactrl import MasaCtrlControl, MasaCtrlSpec
 from pnpinversion_tpu_torch.control.p2p import P2PControl, P2PSpec
 from pnpinversion_tpu_torch.control.pnp import make_pnp_control
+from pnpinversion_tpu_torch.editors.bld_editor import bld_sample
 from pnpinversion_tpu_torch.editors.edict_editor import METHODS as EDICT_METHODS
 from pnpinversion_tpu_torch.editors.edict_editor import (
     GUIDANCE_SCALE,
@@ -47,11 +49,19 @@ from pnpinversion_tpu_torch.editors.p2p_editor import (
     direct_inversion_ablation,
     offset_rows_mask,
 )
+from pnpinversion_tpu_torch.editors.pix2pix_zero_editor import METHODS as P2Z_METHODS
+from pnpinversion_tpu_torch.editors.pix2pix_zero_editor import XA_GUIDANCE, p2z_latents
 from pnpinversion_tpu_torch.editors.pnp_editor import METHODS as PNP_METHODS
 from pnpinversion_tpu_torch.editors.pnp_editor import (
     NEGATIVE_PROMPT,
     ddim_sample_trajectory,
     pnp_sample_loop,
+)
+from pnpinversion_tpu_torch.editors.stylediffusion_editor import (
+    CLIP_VIT_B16,
+    TAUS,
+    make_clip_vision,
+    stylediffusion_latents,
 )
 from pnpinversion_tpu_torch.inversion.ddim_inversion import (
     ddim_invert_loop,
@@ -476,3 +486,110 @@ class BatchedInstruct:
                                   cfg_text if cfg_text is not None else ct,
                                   cfg_image if cfg_image is not None else ci, gen, variant)[:, 0]
         return latent_to_image(pipe.vae, latents).cpu().numpy()
+
+
+class BatchedBLD:
+    """Blended Latent Diffusion over a batch of images; the per-image
+    pipeline is the editor's (``editors/bld_editor.py``), on an SD2.1
+    pipeline (``configs.SD21``) for the reference's model. The images share
+    one noise sequence of one image's shape, drawn from ``seed`` (the JAX
+    class gives every image the same key), so each image is its
+    single-image edit. The N images' 2 rows go through each UNet call
+    together."""
+
+    def __init__(self, pipe: SDPipeline, blending_percentage: float = 0.25, seed: int = 42):
+        self.pipe = pipe
+        self.blending_percentage = blending_percentage
+        self.seed = seed
+        self._cache: Dict[Any, Any] = {}
+
+    @torch.inference_mode()
+    def edit_batch(self, images_u8, latent_masks, cond: torch.Tensor,
+                   guidance_scale: float = 7.5) -> np.ndarray:
+        """images_u8 (N, H, W, 3) uint8; latent_masks (N, h, w, 1) in {0, 1}
+        (``editors.bld_editor.latent_mask``); cond (N, 1, 77, D), each image's
+        target prompt. Returns the edits, uint8 (N, H, W, 3) (BLD's
+        reconstruction panel is zeros)."""
+        pipe = self.pipe
+        cond = cond.to(pipe.device)
+        N = cond.shape[0]
+        uncond = _cached_embed(self, [""])[None].expand(N, -1, -1, -1)
+        masks = torch.as_tensor(np.asarray(latent_masks, np.float32), device=pipe.device)
+        gen = torch.Generator(device=pipe.device).manual_seed(self.seed)
+        lat = bld_sample(pipe.unet, pipe.schedule, _encode_images(pipe, images_u8), masks,
+                         torch.cat([uncond, cond], dim=1), guidance_scale, gen,
+                         self.blending_percentage)
+        return latent_to_image(pipe.vae, lat[:, 0]).cpu().numpy()
+
+
+class BatchedPix2PixZero:
+    """pix2pix-zero (``ddim+`` and ``directinversion+``) over a batch of
+    images; the per-image pipeline is the editor's
+    (``editors/pix2pix_zero_editor.py``: posterior-sampled encode,
+    regularised inversion, the two-pass map-guided edit), with its
+    ``steps_offset=1`` schedule. The images share one posterior noise draw
+    and one table of rolls from ``seed`` (the JAX class gives every image
+    the same key), so each image is its single-image edit; the N images' rows
+    go through each UNet call, and each backward, together. Captions come
+    from the caller (BLIP's ``caption_batch`` or a caption file), encoded."""
+
+    METHODS = P2Z_METHODS
+
+    def __init__(self, pipe: SDPipeline, steps_offset: int = 1, seed: int = 1234,
+                 xa_guidance: float = XA_GUIDANCE):
+        self.pipe = pipe
+        self.schedule = make_ddim_schedule(num_steps=pipe.schedule.num_steps,
+                                           steps_offset=steps_offset)
+        self.seed = seed
+        self.xa_guidance = xa_guidance
+
+    @torch.no_grad()
+    def edit_batch(self, method: str, images_u8, cond_caption: torch.Tensor,
+                   edit_dir: torch.Tensor, guidance_scale: float = 7.5
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """images_u8 (N, H, W, 3) uint8; cond_caption and edit_dir
+        (N, 1, 77, D), each image's caption embedding and edit direction
+        (``editors.pix2pix_zero_editor.construct_direction``). Returns
+        (recon, edit), uint8 (N, H, W, 3) each."""
+        if method not in self.METHODS:
+            raise NotImplementedError(f"{method!r} is not a pix2pix-zero method")
+        pipe = self.pipe
+        rec, edit = p2z_latents(pipe, self.schedule, images_u8, cond_caption.to(pipe.device),
+                                edit_dir.to(pipe.device), guidance_scale,
+                                method == self.METHODS[1], self.seed, self.xa_guidance)
+        return _decode_pair(pipe, rec[:, 0], edit[:, 0])
+
+
+class BatchedStyleDiffusion:
+    """stylediffusion+p2p over a batch of images; the per-image pipeline is
+    the editor's (``editors/stylediffusion_editor.py``: CLIP image tokens,
+    the inversion with its supervision maps, the per-step network training,
+    the reconstruction and the tau-controlled edit). Each image trains its
+    own networks from the same start and stops its inner loops on its own
+    (the images' rows share each UNet call and backward; their losses, batch
+    statistics and stopping never mix). Images whose P2P spec differs run in
+    different batches: ``group_items_by_spec``."""
+
+    def __init__(self, pipe: SDPipeline, clip_vision=None, clip_vision_cfg=None,
+                 num_inner_steps: int = 100, tau_v: float = TAUS[0], tau_c: float = TAUS[1],
+                 tau_s: float = TAUS[2], tau_u: float = TAUS[3]):
+        self.pipe = pipe
+        self.clip = (clip_vision if clip_vision is not None else
+                     make_clip_vision(pipe.device, clip_vision_cfg or CLIP_VIT_B16))
+        self.num_inner_steps = num_inner_steps
+        self.taus = (tau_v, tau_c, tau_s, tau_u)
+
+    @torch.no_grad()
+    def edit_batch(self, p2p_spec: P2PSpec, images_u8, cond_src: torch.Tensor,
+                   cond2: torch.Tensor, tensors: Dict[str, torch.Tensor],
+                   guidance_scale: float = 7.5, mapper0=None) -> Tuple[np.ndarray, np.ndarray]:
+        """images_u8 (N, H, W, 3) uint8; cond_src (N, 1, 77, D); cond2
+        (N, 2, 77, D) = [source, target]; tensors: each image's P2P tensors
+        (``editors.stylediffusion_editor.stylediffusion_p2p``) stacked on a
+        leading N axis. Returns (recon, edit), uint8 (N, H, W, 3) each."""
+        pipe = self.pipe
+        recon, edit = stylediffusion_latents(
+            pipe, self.clip, images_u8, cond_src.to(pipe.device), cond2.to(pipe.device),
+            guidance_scale, P2PControl(p2p_spec), tensors, self.num_inner_steps, self.taus,
+            mapper0)
+        return _decode_pair(pipe, recon[:, 0], edit[:, -1])

@@ -85,6 +85,14 @@ def ddim_inverse_step(schedule: DDIMSchedule, eps: torch.Tensor, t: int,
     return _scalar(_sqrt(alpha_prod_t_next), sample) * x0 + direction
 
 
+def add_noise(schedule: DDIMSchedule, x0: torch.Tensor, noise: torch.Tensor,
+              t: int) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) (diffusers ``add_noise``)."""
+    alpha_prod_t = schedule.alpha_at(t)
+    return (_scalar(_sqrt(alpha_prod_t), x0) * x0
+            + _scalar(_sqrt(np.float32(1.0) - alpha_prod_t), x0) * noise)
+
+
 def classifier_free_guidance(eps_uncond: torch.Tensor, eps_cond: torch.Tensor,
                              scale: float) -> torch.Tensor:
     return eps_uncond + _scalar(scale, eps_cond) * (eps_cond - eps_uncond)

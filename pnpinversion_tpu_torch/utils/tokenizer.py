@@ -6,7 +6,9 @@ pipelines use ``SimpleWordTokenizer``: a deterministic word-level tokenizer
 with the protocol the P2P helpers rely on (``encode`` with BOS/EOS,
 single-token ``decode``, ``model_max_length``). Its vocabulary grows lazily in
 call order, so two instances fed the same texts in the same order give the
-same ids. The CLIP BPE tokenizer comes with real checkpoints (ROADMAP A11).
+same ids. The CLIP BPE tokenizer comes with real checkpoints (ROADMAP A13).
+``BertWordPieceTokenizer`` is BLIP's text tokenizer (a copy of the JAX
+package's), on a local ``vocab.txt``.
 """
 from __future__ import annotations
 
@@ -62,6 +64,97 @@ class SimpleWordTokenizer:
             if padding == "max_length":
                 # CLIP pads with EOS (pad_token == eos in SD1.4's tokenizer config)
                 ids = ids + [self.eos_token_id] * (max_length - len(ids))
+            out.append(ids)
+        return {"input_ids": out}
+
+
+class BertWordPieceTokenizer:
+    """BERT-uncased WordPiece tokenizer (BLIP's text tokenizer) on a local
+    ``vocab.txt``: lower-cased words split at punctuation, each word by the
+    greedy longest-match-first subword rule ("##" continuations), an unknown
+    word as one [UNK]."""
+
+    def __init__(self, vocab_file: str, model_max_length: int = 512):
+        self.model_max_length = model_max_length
+        with open(vocab_file) as f:
+            words = [line.rstrip("\n") for line in f]
+        self.vocab = {w: i for i, w in enumerate(words)}
+        self.inv = {i: w for w, i in self.vocab.items()}
+        self.cls_token_id = self.vocab.get("[CLS]", 101)
+        self.sep_token_id = self.vocab.get("[SEP]", 102)
+        self.unk_token_id = self.vocab.get("[UNK]", 100)
+        self.pad_token_id = self.vocab.get("[PAD]", 0)
+        # the shared tokenizer protocol's names
+        self.bos_token_id = self.cls_token_id
+        self.eos_token_id = self.sep_token_id
+
+    def _wordpiece(self, word: str) -> List[int]:
+        out: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            cur = None
+            while start < end:
+                sub = word[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    cur = self.vocab[sub]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_token_id]
+            out.append(cur)
+            start = end
+        return out
+
+    @staticmethod
+    def _basic_tokens(text: str) -> List[str]:
+        out: List[str] = []
+        for tok in text.lower().strip().split():
+            cur = ""
+            for ch in tok:
+                if ch.isalnum():
+                    cur += ch
+                else:
+                    if cur:
+                        out.append(cur)
+                        cur = ""
+                    if not ch.isspace():
+                        out.append(ch)
+            if cur:
+                out.append(cur)
+        return out
+
+    def encode(self, text: str) -> List[int]:
+        ids = [self.cls_token_id]
+        for w in self._basic_tokens(text):
+            ids.extend(self._wordpiece(w))
+        ids.append(self.sep_token_id)
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        toks = [self.inv.get(int(i), "") for i in ids
+                if int(i) not in (self.cls_token_id, self.sep_token_id, self.pad_token_id)]
+        out = ""
+        for t in toks:
+            if t.startswith("##"):
+                out += t[2:]
+            else:
+                out += (" " if out else "") + t
+        return out
+
+    def __call__(self, texts, padding="max_length", max_length=None, truncation=True):
+        if isinstance(texts, str):
+            texts = [texts]
+        max_length = max_length or self.model_max_length
+        out = []
+        for t in texts:
+            ids = self.encode(t)
+            if truncation and len(ids) > max_length:
+                ids = ids[: max_length - 1] + [self.sep_token_id]
+            if padding == "max_length":
+                ids = ids + [self.pad_token_id] * (max_length - len(ids))
             out.append(ids)
         return {"input_ids": out}
 

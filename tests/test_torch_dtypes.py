@@ -46,10 +46,21 @@ RUNS = [(m, "p2p_editor", "P2PEditor", {}) for m in (
     ("edict+p2p", "edict_editor", "EDICTEditor", {"precision": "df64"}),
     ("instruct-pix2pix", "instruct_editor", "InstructEditor", {}),
     ("instruct-diffusion", "instruct_editor", "InstructEditor", {}),
+    ("blended-latent-diffusion", "bld_editor", "BlendedLatentDiffusionEditor", {}),
+    ("ddim+pix2pix-zero", "pix2pix_zero_editor", "Pix2PixZeroEditor", {}),
+    ("directinversion+pix2pix-zero", "pix2pix_zero_editor", "Pix2PixZeroEditor", {}),
+    ("stylediffusion+p2p", "stylediffusion_editor", "StyleDiffusionEditor", {}),
 ]
+# the JAX editors imported before any test patches the functions they import
+# by name (an editor first imported under a patch would keep the patch)
+for _module in {r[1] for r in RUNS}:
+    importlib.import_module(f"pnpinversion_tpu.editors.{_module}")
+# StyleDiffusion's CLIP tower at TINY: its width is the UNet's context width
+TINY_CLIP = dict(image_size=16, patch_size=8, width=32, layers=1, heads=2, projection_dim=16)
 # the modules of the JAX package that call its UNet by name
 JAX_UNET_CALLERS = ("inversion.ddim_inversion", "sampling.p2p_forward", "inversion.ef_ddpm",
-                    "editors.pnp_editor", "editors.edict_editor", "editors.instruct_editor")
+                    "editors.pnp_editor", "editors.edict_editor", "editors.instruct_editor",
+                    "editors.bld_editor", "inversion.pix2pix_zero", "inversion.stylediffusion")
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,9 +115,17 @@ def _jax_dtypes(method, module, cls, kw):
         vae = importlib.import_module("pnpinversion_tpu.models.vae")
         mp.setattr(vae, "vae_encode", vae_encode)
         mp.setattr(vae, "vae_decode", vae_decode)
-        mp.setattr(importlib.import_module("pnpinversion_tpu.editors.instruct_editor"),
-                   "vae_encode", vae_encode)
+        for name in ("instruct_editor", "pix2pix_zero_editor"):
+            mp.setattr(importlib.import_module(f"pnpinversion_tpu.editors.{name}"), "vae_encode",
+                       vae_encode)
         editor = getattr(importlib.import_module(f"pnpinversion_tpu.editors.{module}"), cls)
+        if module == "stylediffusion_editor":
+            from pnpinversion_tpu.models import vit
+
+            cfg = vit.ViTConfig(**TINY_CLIP)
+            shapes = jax.eval_shape(lambda k: vit.init_vit_params(k, cfg), jax.random.PRNGKey(0))
+            kw = dict(kw, clip_vision_params=jax.tree.map(
+                lambda x: jnp.zeros(x.shape, x.dtype), shapes), clip_vision_cfg=cfg)
         _call(editor(pipe, **kw), method)
     return dict(seen)
 
@@ -131,6 +150,10 @@ def _torch_dtypes(method, module, cls, kw):
     _, tcfg = tiny_configs(8 if module == "instruct_editor" else 4)
     pipe = SDPipeline.create(tcfg, num_ddim_steps=STEPS, device="cpu", dtype=torch.bfloat16)
     editor = getattr(importlib.import_module(f"pnpinversion_tpu_torch.editors.{module}"), cls)
+    if module == "stylediffusion_editor":
+        from pnpinversion_tpu_torch.models.vit import ViTConfig
+
+        kw = dict(kw, clip_vision_cfg=ViTConfig(**TINY_CLIP))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(UNet, "forward", unet_forward)
         mp.setattr(VAE, "encode", vae_encode)
@@ -146,16 +169,67 @@ def _call(editor, method):
         return editor(method, img, "make it a dog", steps=STEPS)
     if method.startswith("edit-friendly"):
         return editor(method, img, *PROMPTS, skip=1)
+    if method == "blended-latent-diffusion":
+        mask = np.zeros((16, 16), np.float32)
+        mask[4:12, 2:10] = 1.0
+        return editor(method, img, mask, PROMPTS[1])
+    if method.endswith("pix2pix-zero"):
+        return editor(method, img, *PROMPTS, caption="a cat")
+    if method.startswith("stylediffusion"):
+        return editor(method, img, *PROMPTS, num_inner_steps=2)
     return editor(method, img, *PROMPTS)
 
 
 @pytest.mark.parametrize("method,module,cls,kw", RUNS, ids=[r[0] for r in RUNS])
 def test_port_computes_in_the_dtypes_jax_does(method, module, cls, kw):
     """The UNet's, the VAE encoder's and the VAE decoder's input dtypes, as
-    sets over the edit: bf16 throughout for the P2P, MasaCtrl and PnP
-    families; an f32 UNet and decode for EF (its encode bf16), EDICT (its
+    sets over the edit: bf16 throughout for the P2P, MasaCtrl, PnP, BLD (its
+    blended carry), pix2pix-zero (its inverse step computed in f32 and cast
+    back, its SGD step on the bf16 latent) and StyleDiffusion families; an f32 UNet and decode for EF (its encode bf16), EDICT (its
     encode f32 too) and the instruction editors (encode bf16)."""
     want = _jax_dtypes(method, module, cls, kw)
     assert _torch_dtypes(method, module, cls, kw) == want
     f32 = module in ("ef_editor", "edict_editor", "instruct_editor")
     assert want["unet"] == want["decode"] == {"float32" if f32 else "bfloat16"}
+
+
+def test_f32_steps_of_the_bf16_families():
+    """The f32 pieces inside the bf16 families, as the JAX package computes
+    them: pix2pix-zero's inverse step (f32 from bf16 inputs, cast back by the
+    inversion), StyleDiffusion's training loss (f32 on bf16 eps and maps) and
+    its mapped V context (f32 from a bf16 context and f32 networks)."""
+    from pnpinversion_tpu.inversion import pix2pix_zero as jp2z
+    from pnpinversion_tpu.models import stylediffusion as jsd
+    from pnpinversion_tpu.schedulers.ddim import make_ddim_schedule as jmake
+    from pnpinversion_tpu_torch.control.stylediffusion import StyleTrainControl
+    from pnpinversion_tpu_torch.inversion import pix2pix_zero as tp2z
+    from pnpinversion_tpu_torch.inversion import stylediffusion as tinv
+    from pnpinversion_tpu_torch.models import stylediffusion as tsd
+    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+
+    x = jnp.zeros((1, 8, 8, 4), jnp.bfloat16)
+    want = jax.eval_shape(lambda e, s: jp2z.p2z_inverse_step(jmake(2, steps_offset=1), e, 1, s),
+                          x, x)
+    got = tp2z.p2z_inverse_step(make_ddim_schedule(2, steps_offset=1),
+                                torch.zeros((1, 8, 8, 4), dtype=torch.bfloat16), 1,
+                                torch.zeros((1, 8, 8, 4), dtype=torch.bfloat16))
+    assert str(want.dtype) == str(got.dtype).replace("torch.", "") == "float32"
+
+    _, tcfg = tiny_configs()
+    pipe = SDPipeline.create(tcfg, num_ddim_steps=STEPS, device="cpu", dtype=torch.bfloat16)
+    m0 = {k: v[:, 0] for k, v in tsd.init_mapper_params(torch.Generator().manual_seed(0), 1, 1,
+                                                       tokens_in=5).items()}
+    lat = torch.zeros((1, 1, 8, 8, 4), dtype=torch.bfloat16)
+    cond = torch.zeros((1, 1, 77, 32), dtype=torch.bfloat16)
+    tokens = torch.ones((1, 5, 32))
+    with torch.no_grad():
+        loss = tinv._losses(pipe.unet, pipe.schedule, lat, 501, 0, cond, lat, lat, {}, tokens, m0,
+                            7.5, StyleTrainControl("all"))
+    assert loss.dtype == torch.float32
+    jemb = jax.eval_shape(
+        lambda c, t: jsd.forward_embed(jsd.mapper_at_step(jsd.init_mapper_params(
+            jax.random.PRNGKey(0), 1, tokens_in=5, width=32), 0), c, t),
+        jax.ShapeDtypeStruct((1, 77, 32), jnp.bfloat16), jax.ShapeDtypeStruct((1, 5, 32),
+                                                                              jnp.float32))
+    temb = tsd.forward_embed(m0, cond[:, None][:, :, 0], tokens)
+    assert str(jemb.dtype) == str(temb.dtype).replace("torch.", "") == "float32"

@@ -54,6 +54,22 @@ def test_kernel_matches_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s", [(2, 5, 4096), (2, 10, 1024), (8, 5, 4096), (8, 10, 1024)])
+def test_kernel_at_sd21_shapes_on_cuda(cuda_device, b, h, s):
+    """SD2.1's 64-dim heads (5 at 64^2, 10 at 32^2) at Blended Latent
+    Diffusion's 2 rows and its batched class's 8 (4 images), heads split from
+    (B, S, H*64) as the UNet makes them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((b, s, h * 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+               .view(b, s, h, 64).transpose(1, 2) for _ in range(3))
+    out, lse = tflash.flash_attention_fwd(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    want, lse_want = tflash.flash_attention_reference(q, k, v, 0.125)
+    assert (out.float() - want.float()).abs().max().item() <= 1e-2
+    assert ((lse - lse_want).abs() / lse_want.abs()).max().item() <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("sq,d", [(4096, 40), (1024, 80)])
 def test_kernel_union_shapes_on_cuda(cuda_device, sq, d):
     """MasaCtrl's union at 4 rows: Sk = 2 Sq (each row's half-source K/V and
@@ -159,9 +175,10 @@ def _bwd_rel_errs(got, want):
     # the long cross shape, the smallest and largest head dims, 2 and 4 rows
     (1, 4096, 77, 40, True), (1, 1000, 1000, 80, True), (4, 1000, 1000, 80, True),
     (2, 1024, 1024, 16, False), (1, 1024, 1024, 128, False), (4, 4096, 4096, 40, True),
-    # batched null-text at 2, 4 and 8 images (one row each)
+    # batched null-text at 2, 4 and 8 images (one row each); pix2pix-zero's
+    # batched class at 4 images (2 rows each) differentiates 8 rows at 32^2
     (2, 4096, 4096, 40, True), (2, 1024, 1024, 80, True), (8, 4096, 4096, 40, True),
-    (4, 1024, 1024, 80, True)])
+    (4, 1024, 1024, 80, True), (8, 1024, 1024, 80, True)])
 def test_bwd_kernels_match_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
     q, k, v, out, lse, do = _bwd_inputs(cuda_device, b, 8, sq, sk, d, strided)
     scale = d ** -0.5
