@@ -75,7 +75,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one UNet call with TF32 on against full f32; then InstructPix2Pix and
    InstructDiffusion on an IP2P pipeline (the 8-channel UNet, bf16, its UNet
    in f32): one counted edit each at 50 steps and ``BatchedInstruct`` on 4
-   images at 50 (each edit within 2 uint8 levels of the editor's); every
+   images at 50 (each edit within 2 uint8 levels of the editor's); then
+   the InstructPix2Pix training path on its own SD1.4 pipeline: a prompt
+   dataset of 2 template records, 4 candidate pairs each at 512^2 (one
+   sampler call of 16 rows, P2P self-attention sharing, the full-width CLIP
+   filter), the seeds.json dataset at 256^2 crops, and ``EditTrainer`` on
+   the pipeline's UNet widened to 8 channels (bf16 over f32 masters, batch
+   8, accumulation 2): 3 counted optimizer steps, which run the bf16
+   forward and backward at the 32^2 sites of d = 40, a save, the next step
+   against itself with remat and after a restore, a validation step; every
    shape that these paths launched a kernel at, in either dtype, must be
    one that phase 3 held against the plain version;
 9. the PIE-Bench evaluator at full width (CLIP ViT-L/14, DINO ViT-B/8,
@@ -94,6 +102,7 @@ import collections
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -155,6 +164,11 @@ FLASH_CASES = [
     ("sd21_32x32", 2, 10, 1024, 1024, 64, True, True),
     ("sd21_batch4_64x64", 8, 5, 4096, 4096, 64, True, True),
     ("sd21_batch4_32x32", 8, 10, 1024, 1024, 64, True, True),
+    # InstructPix2Pix training at 256^2 crops: the 32^2 sites of
+    # down_blocks[0]/up_blocks[3] (8 heads of d = 40) at batch 8 (the smoke's)
+    # and 32 (the runner's default)
+    ("train_b8_32x32", 8, 8, 1024, 1024, 40, True, True),
+    ("train_b32_32x32", 32, 8, 1024, 1024, 40, True, True),
 ] + EDGE_CASES
 # the f32 paths: the f32 pipeline (SDPipeline.create(..., dtype=torch.float32))
 # on one image, 1 row in inversion and null-text's inner loop, 3 in the
@@ -195,6 +209,10 @@ FLASH_BWD_CASES = [
     ("nulltext_b8_64x64", 8, 8, 4096, 4096, 40, True, True),
     # pix2pix-zero's batched class at 4 images differentiates 8 rows
     ("p2z_b4_32x32", 8, 8, 1024, 1024, 80, True, True),
+    # InstructPix2Pix training differentiates its 32^2 sites (d = 40) at
+    # batch 8 (the smoke's) and 32 (the runner's default)
+    ("train_b8_32x32", 8, 8, 1024, 1024, 40, True, True),
+    ("train_b32_32x32", 32, 8, 1024, 1024, 40, True, True),
 ] + EDGE_CASES
 # the f32 null-text inner loop (one UNet row) and the edge cases
 F32_FLASH_BWD_CASES = [
@@ -1991,6 +2009,209 @@ def instruct_phase() -> dict:
     return out
 
 
+TRAIN_DIR = "build/smoke_training"  # git-ignored; removed when the phase ends
+TRAIN_CAPTIONS = ("a round cake with orange frosting on a wooden plate",
+                  "a red bicycle leaning on a brick wall")
+PAIR_STEPS = 3  # Euler steps of the candidate pairs: the shapes do not depend on the steps
+PAIR_BATCH = 4  # candidates per sampler call (the runner's default): 16 UNet rows
+# random weights make CLIP's similarities meaningless, so the default
+# thresholds (0.2, 0.2, 0.7) could keep no pair: the smoke keeps every one
+KEEP_ALL = (-1.0, -1.0, -1.0)
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_CROP = 8, 2, 256
+TRAIN_STEPS = 3  # counted optimizer steps before the save
+# the flash sites of a 256^2 crop: the 32^2 self-attention of down_blocks[0]
+# (x2) and up_blocks[3] (x3); the 16^2 and 8^2 sites are shorter than the
+# kernel's 1024
+TRAIN_SITES = 5
+# the same step from the same state and draws, run again: the forward is
+# deterministic, so the loss must repeat exactly; the gradients do not (the
+# bf16 backward reduces dQ with bulk reduce-adds in varying order, and
+# cuDNN's weight-gradient convolutions may run in varying order), so the
+# grad norm and the updated parameters only within these bounds
+TRAIN_GNORM_RTOL = 1e-3
+TRAIN_PARAM_ATOL_LR = 0.1  # max |param difference| after the step, in units of the lr
+
+
+def _train_batches(ds, n: int) -> list:
+    """n host batches of TRAIN_ACCUM microbatches of TRAIN_BATCH items."""
+    from pnpinversion_tpu_torch.training.data import batches
+
+    stream = batches(ds, TRAIN_BATCH, seed=0)
+    out = []
+    for _ in range(n):
+        parts = [next(stream) for _ in range(TRAIN_ACCUM)]
+        out.append({"edited": np.stack([p["edited"] for p in parts]),
+                    "cond_image": np.stack([p["cond_image"] for p in parts]),
+                    "edits": [p["edit"] for p in parts]})
+    return out
+
+
+def _check_train_launches(name: str, counts: dict, steps: int, remat: bool) -> None:
+    micro = steps * TRAIN_ACCUM
+    want_fwd = TRAIN_SITES * micro * (2 if remat else 1)
+    if not (counts["fwd"] == want_fwd
+            and counts["prep"] == counts["main"] == counts["convert"] == TRAIN_SITES * micro):
+        raise AssertionError(f"{name}: launches {counts}, want {want_fwd} forward and "
+                             f"{TRAIN_SITES * micro} of each backward kernel ({TRAIN_SITES} "
+                             f"sites x {micro} microbatches{', remat' if remat else ''})")
+
+
+def training_phase() -> dict:
+    """The InstructPix2Pix training path at full SD1.4 width (random weights
+    from seed 0, bf16): ``generate_prompt_dataset`` with the template
+    completions on 2 captions; ``generate_for_prompt`` for each (512^2,
+    ``PAIR_BATCH`` candidates in one sampler call of 16 rows at
+    ``PAIR_STEPS`` Euler steps, the full-width CLIP filter: ViT-L/14 and its
+    768-wide text tower), counted; ``prepare_dataset`` and ``EditPairDataset``
+    at 256^2 crops; then ``EditTrainer`` on the same pipeline's UNet widened
+    to 8 channels by ``extend_conv_in`` (bf16 compute, f32 masters; batch 8,
+    accumulation 2): ``TRAIN_STEPS`` counted optimizer steps, a save, the
+    next step, that step again with remat after a restore (counted: the
+    forward twice) and once more after another restore without remat, each
+    against the uninterrupted step (the remat step from a copy of the state
+    on the card, the other from the file); a validation step. Seconds per step,
+    peak memory of the training, the losses and grad norms."""
+    import shutil
+
+    from pnpinversion_tpu_torch.configs import IP2P, SD14
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+    from pnpinversion_tpu_torch.training import dataset_creation as dc
+    from pnpinversion_tpu_torch.training import prompt_dataset as pd
+    from pnpinversion_tpu_torch.training import trainer as tr
+    from pnpinversion_tpu_torch.training.data import EditPairDataset
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out = {}
+    prompts_path = f"{TRAIN_DIR}/prompts.jsonl"
+    calls = iter(range(len(TRAIN_CAPTIONS)))
+    n = pd.generate_prompt_dataset(TRAIN_CAPTIONS, lambda p: pd.template_complete(p, next(calls)),
+                                   prompts_path, len(TRAIN_CAPTIONS))
+    prompts = dc.load_prompts(prompts_path)
+    if not n == len(prompts) == len(TRAIN_CAPTIONS):
+        raise AssertionError(f"the prompt dataset holds {n} records, want {len(TRAIN_CAPTIONS)}")
+
+    pipe, t_create = _sync_time(lambda: SDPipeline.create(SD14, seed=0))
+    generator = dc.PairGenerator(pipe, PAIR_STEPS)
+    clip, t_clip = _sync_time(lambda: dc.PairClipFilter(tokenizer=pipe.tokenizer,
+                                                        device=pipe.device))
+    pairs_dir = f"{TRAIN_DIR}/pairs"
+    _reset_counts()
+    seconds = []
+    for i, prompt in enumerate(prompts):
+        kept, t = _sync_time(lambda: dc.generate_for_prompt(
+            prompt, f"{pairs_dir}/{i:07d}", generator, clip, n_samples=PAIR_BATCH,
+            max_out_samples=PAIR_BATCH, batch=PAIR_BATCH, thresholds=dc.FilterThresholds(*KEEP_ALL),
+            rng=np.random.default_rng(np.random.SeedSequence([0, i]))))
+        seconds.append(t)
+        if kept != PAIR_BATCH:
+            raise AssertionError(f"prompt {i}: {kept} pairs kept, want {PAIR_BATCH}")
+    counts = _counts()
+    want = {"fwd": FLASH_SITES * PAIR_STEPS * len(prompts), "prep": 0, "main": 0, "convert": 0}
+    if counts != want:
+        raise AssertionError(f"pair generation launched {counts}, want {want}")
+    dc.prepare_dataset(pairs_dir)
+    ds = EditPairDataset(pairs_dir, splits=(1.0, 0.0, 0.0), min_resize_res=TRAIN_CROP,
+                         max_resize_res=TRAIN_CROP, crop_res=TRAIN_CROP, flip_prob=0.5)
+    item = ds.get(0, np.random.default_rng(0))
+    if len(ds) != len(prompts) or item["edited"].shape != (TRAIN_CROP, TRAIN_CROP, 3):
+        raise AssertionError(f"the pair dataset: {len(ds)} items, {item['edited'].shape}")
+    out["dataset_creation"] = {
+        "prompts": len(prompts), "pairs_per_prompt": PAIR_BATCH, "euler_steps": PAIR_STEPS,
+        "unet_rows": 4 * PAIR_BATCH, "clip_thresholds": KEEP_ALL, "create_s": t_create,
+        "clip_filter_create_s": t_clip, "generate_for_prompt_s": seconds, "launches": counts}
+    print("dataset_creation", json.dumps(out["dataset_creation"]), flush=True)
+
+    # the trainer on the same pipeline's UNet widened to 8 channels (the ip2p
+    # init); the pipeline's own UNet then goes, to leave the card to training
+    unet8 = tr.extend_conv_in(pipe.unet, IP2P.unet.in_channels)
+    pipe.unet = None
+    del generator
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tr.TrainConfig(accum=TRAIN_ACCUM, dtype=torch.bfloat16)
+    trainer, t_trainer = _sync_time(lambda: tr.EditTrainer(
+        IP2P, {"vae": pipe.vae, "text": pipe.text_encoder}, unet8, cfg, TRAIN_BATCH,
+        pipe.tokenize([""])[0]))
+    del unet8
+    host = _train_batches(ds, TRAIN_STEPS + 2)
+    batches_ = [{"edited": b["edited"], "cond_image": b["cond_image"],
+                 "ids": torch.stack([pipe.tokenize(e) for e in b["edits"]])} for b in host]
+
+    def step(i: int):
+        return trainer.train_step(batches_[i], tr.step_generator(0, i, trainer.device))
+
+    _reset_counts()
+    metrics, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        m, t = _sync_time(lambda: step(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+        step_s.append(t)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_train_launches("training", counts, TRAIN_STEPS, remat=False)
+    if not all(np.isfinite(list(m.values())).all() and m["grad_norm"] > 0 for m in metrics):
+        raise AssertionError(f"training metrics {metrics}")
+    path, t_save = _sync_time(lambda: trainer.save(TRAIN_DIR))
+    # the state on the card too: the remat step starts from it without a
+    # second read of the file
+    saved = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v)
+             for k, v in trainer.state_dict().items()}
+    ref, t_ref = _sync_time(lambda: step(TRAIN_STEPS))
+    ref = {k: float(v) for k, v in ref.items()}
+    after = [p.detach().clone() for p in trainer.params]
+    lr = trainer.learning_rate(TRAIN_STEPS)
+
+    def again(remat: bool) -> dict:
+        _, t_restore = _sync_time(lambda: trainer.load_state_dict(saved) if remat
+                                  else trainer.restore(path))
+        if trainer.step != TRAIN_STEPS:
+            raise AssertionError(f"restored at step {trainer.step}, want {TRAIN_STEPS}")
+        trainer.cfg = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        m, t = _sync_time(lambda: step(TRAIN_STEPS))
+        counts = _counts()
+        _check_train_launches(f"training step{' with remat' if remat else ''} after a restore",
+                              counts, 1, remat)
+        m = {k: float(v) for k, v in m.items()}
+        dp = max((a - p.detach()).abs().max().item() for a, p in zip(after, trainer.params))
+        row = {"loss": m["loss"], "grad_norm": m["grad_norm"], "step_s": t,
+               "restore_s": t_restore, "launches": counts,
+               "grad_norm_rel_diff": abs(m["grad_norm"] / ref["grad_norm"] - 1.0),
+               "param_max_abs_diff": dp, "param_max_abs_diff_in_lr": dp / lr,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if (m["loss"] != ref["loss"] or row["grad_norm_rel_diff"] > TRAIN_GNORM_RTOL
+                or row["param_max_abs_diff_in_lr"] > TRAIN_PARAM_ATOL_LR):
+            raise AssertionError(f"the step {'with remat ' if remat else ''}after a restore "
+                                 f"{row} differs from the uninterrupted one {ref} (limits: the "
+                                 f"loss equal, grad norm {TRAIN_GNORM_RTOL} rel, params "
+                                 f"{TRAIN_PARAM_ATOL_LR} lr)")
+        return row
+
+    remat = again(True)
+    del saved
+    resumed = again(False)
+    trainer.cfg = cfg
+    val, t_val = _sync_time(lambda: trainer.val_step(batches_[-1], tr.step_generator(1, 0,
+                                                                                    trainer.device)))
+    if val.dtype != torch.float32 or not torch.isfinite(val):
+        raise AssertionError(f"val_step gave {val}")
+    out["training"] = {
+        "batch_per_step": TRAIN_BATCH, "accumulate_grad_batches": TRAIN_ACCUM,
+        "crop_res": TRAIN_CROP, "dtype": "bf16 compute, f32 masters", "lr": lr,
+        "trainer_create_s": t_trainer, "step_s": step_s, "metrics": metrics, "launches": counts,
+        "peak_mem_gib": peak, "save_s": t_save, "checkpoint_gib": os.path.getsize(path) / 2**30,
+        "uninterrupted_step": {**ref, "step_s": t_ref}, "remat_after_restore": remat,
+        "resumed_step": resumed, "val_loss": float(val), "val_s": t_val}
+    print("training", json.dumps(out["training"]), flush=True)
+    del trainer, after, clip, pipe
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 F32_DI_STEPS = 50        # DDIM steps of the f32 directinversion+p2p edit
 F32_NULL_TEXT_STEPS = 3  # and of the f32 null-text edit (10 inner steps each)
 F32_BWD_KERNELS = {"dq": "flash_bwd_dq_f32_kernel", "dkv": "flash_bwd_dkv_f32_kernel",
@@ -2799,6 +3020,7 @@ def main() -> int:
     print("f32_path_summary", json.dumps(f32_path), flush=True)
     instruct = instruct_phase()
     print("instruct", json.dumps(instruct), flush=True)
+    training = training_phase()
     print("path_shapes", json.dumps(_check_path_shapes()), flush=True)
     evaluation = eval_phase(batch_out)
     print("evaluation", json.dumps(evaluation), flush=True)
@@ -2823,6 +3045,10 @@ def main() -> int:
                 f32_by_path[f"{row['steps']} steps: {name}"] = row[key]["fwd"]
     for name, row in masactrl_controls.items():
         fwd_by_path[f"one UNet call, MasaCtrl {name}"] = row["launches"]
+    fwd_by_path["dataset_creation"] = training["dataset_creation"]["launches"]["fwd"]
+    for name, row in (("training", training["training"]),
+                      ("training with remat", training["training"]["remat_after_restore"])):
+        fwd_by_path[name], bwd_by_path[name] = row["launches"]["fwd"], row["launches"]["main"]
     fwd_by_path[f"{BLD_STEPS} steps: blended-latent-diffusion"] = bld["launches"]["fwd"]
     fwd_by_path[f"batched blended-latent-diffusion x{BATCH}"] = bld["batch_launches"]["fwd"]
     for steps, rows in ((P2Z_STEPS, pix2pix_zero), (SD_STEPS, stylediffusion)):

@@ -218,19 +218,64 @@ def lpips_state_dict(params) -> StateDict:
     return sd
 
 
+def clip_modules_from_jax_params(params: Dict[str, Any], clip_vision: ViTConfig,
+                                 clip_text: CLIPTextConfig) -> dict:
+    """The CLIP towers of a JAX tree (``clip_vision``, ``clip_text``,
+    ``clip_text_proj``; numpy leaves: the ``MetricsCalculator``'s or the
+    ``PairClipFilter``'s) -> the port's modules of the same names, on the CPU
+    in f32."""
+    proj = params["clip_text_proj"]["kernel"]
+    with torch.device("meta"):
+        text_proj = torch.nn.Linear(*np.shape(proj), bias=False)
+    return {"clip_vision": from_jax_params(params["clip_vision"], clip_vision),
+            "clip_text": from_jax_params(params["clip_text"], clip_text),
+            "clip_text_proj": _load(text_proj, {"weight": np.asarray(proj).T})}
+
+
 def metric_modules_from_jax_params(params: Dict[str, Any], clip_vision: ViTConfig,
                                    clip_text: CLIPTextConfig, dino: ViTConfig) -> dict:
     """The JAX ``MetricsCalculator``'s tree (``clip_vision``, ``clip_text``,
     ``clip_text_proj``, ``lpips``, ``dino``; numpy leaves) -> the port's
     modules of the same names, on the CPU in f32."""
-    proj = params["clip_text_proj"]["kernel"]
     with torch.device("meta"):
-        text_proj, lpips = torch.nn.Linear(*np.shape(proj), bias=False), LPIPS()
-    return {"clip_vision": from_jax_params(params["clip_vision"], clip_vision),
-            "clip_text": from_jax_params(params["clip_text"], clip_text),
-            "clip_text_proj": _load(text_proj, {"weight": np.asarray(proj).T}),
+        lpips = LPIPS()
+    return {**clip_modules_from_jax_params(params, clip_vision, clip_text),
             "lpips": _load(lpips, lpips_state_dict(params["lpips"])),
             "dino": from_jax_params(params["dino"], dino)}
+
+
+def _optax_states(tree) -> list:
+    """Every optax state in a numpy copy of an optax state tree: the
+    namedtuples (``ScaleByAdamState``, ``ScaleByScheduleState``, ...), found
+    by their fields, as the port has no optax."""
+    if hasattr(tree, "_fields"):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [s for t in tree for s in _optax_states(t)]
+    return []
+
+
+def train_state_from_jax(state, config: UNetConfig) -> Dict[str, Any]:
+    """The JAX ``EditTrainer``'s state with numpy leaves
+    (``jax.device_get(trainer.state)``: params, ema, optax's
+    ``chain(clip_by_global_norm, adamw)`` state, step) -> the port's
+    ``EditTrainer.load_state_dict`` layout: params, ema, the Adam moments
+    mu/nu by parameter name in the port's layouts, Adam's count and step.
+    The schedule's count, which optax keeps apart, must equal Adam's: the
+    port keeps one."""
+    kernel = np.shape(state["params"]["conv_in"]["kernel"])
+    if kernel[2] != config.in_channels:
+        raise ValueError(f"the state's UNet takes {kernel[2]} input channels, the config "
+                         f"{config.in_channels}")
+    opt = _optax_states(state["opt"])
+    adam = [s for s in opt if {"count", "mu", "nu"} <= set(s._fields)]
+    counts = {int(np.asarray(s.count)) for s in opt if "count" in s._fields}
+    if len(adam) != 1 or len(counts) != 1:
+        raise ValueError(f"want one Adam state and one count in the optax state, got "
+                         f"{len(adam)} and counts {sorted(counts)}")
+    return {"params": unet_state_dict(state["params"]), "ema": unet_state_dict(state["ema"]),
+            "mu": unet_state_dict(adam[0].mu), "nu": unet_state_dict(adam[0].nu),
+            "count": counts.pop(), "step": int(np.asarray(state["step"]))}
 
 
 def _load(module: torch.nn.Module, sd: StateDict) -> torch.nn.Module:

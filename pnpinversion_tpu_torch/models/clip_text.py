@@ -1,7 +1,10 @@
 """CLIP text encoder (port of ``pnpinversion_tpu/models/clip_text.py``):
 the ViT-L/14 text tower of SD1.x with transformers' ``CLIPTextModel`` names.
-Returns the final-layer hidden states. Attention is plain (causal, f32
-softmax): there is no kernel at this site.
+Returns the final-layer hidden states in the dtype asked for, whatever the
+weights' dtype: its projections cast their weights to the activation's
+dtype, as the JAX package's ``linear`` does (so a bf16 pipeline's tower
+computes in f32 when asked, as the JAX trainer's f32 steps have it).
+Attention is plain (causal, f32 softmax): there is no kernel at this site.
 """
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pnpinversion_tpu_torch.configs import CLIPTextConfig
-from pnpinversion_tpu_torch.models.layers import LayerNorm, quick_gelu
+from pnpinversion_tpu_torch.models.layers import LayerNorm, Linear, quick_gelu
 
 
 def _embedding(num: int, dim: int, init_std: float) -> nn.Embedding:
@@ -22,17 +25,17 @@ def _embedding(num: int, dim: int, init_std: float) -> nn.Embedding:
 class CLIPAttention(nn.Module):
     def __init__(self, width: int):
         super().__init__()
-        self.q_proj = nn.Linear(width, width)
-        self.k_proj = nn.Linear(width, width)
-        self.v_proj = nn.Linear(width, width)
-        self.out_proj = nn.Linear(width, width)
+        self.q_proj = Linear(width, width)
+        self.k_proj = Linear(width, width)
+        self.v_proj = Linear(width, width)
+        self.out_proj = Linear(width, width)
 
 
 class CLIPMLP(nn.Module):
     def __init__(self, width: int):
         super().__init__()
-        self.fc1 = nn.Linear(width, width * 4)
-        self.fc2 = nn.Linear(width * 4, width)
+        self.fc1 = Linear(width, width * 4)
+        self.fc2 = Linear(width * 4, width)
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -258,17 +258,19 @@ class UNet(nn.Module):
         self.conv_norm_out = GroupNorm(groups, chs[0])
         self.conv_out = Conv2d(chs[0], config.out_channels, 3)
 
-    def forward(self, x: torch.Tensor, t: int, context: torch.Tensor,
+    def forward(self, x: torch.Tensor, t, context: torch.Tensor,
                 control: BaseControl = NO_CONTROL, tensors=None, state=None,
                 step: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
-        """Noise prediction eps(x_t, t, context). x: (B, H, W, C_in) NHWC;
-        returns (eps NHWC, control state)."""
+        """Noise prediction eps(x_t, t, context). x: (B, H, W, C_in) NHWC; t:
+        one timestep for every row (a number), or a (B,) tensor of one per row
+        (training); returns (eps NHWC, control state)."""
         cfg = self.config
         state = {} if state is None else state
         site_iter = iter(self.sites)
 
-        temb = timestep_embedding(torch.tensor([t], dtype=torch.float32, device=x.device),
-                                  cfg.block_out_channels[0], flip_sin_to_cos=cfg.flip_sin_to_cos,
+        if not isinstance(t, torch.Tensor):
+            t = torch.tensor([t], dtype=torch.float32, device=x.device)
+        temb = timestep_embedding(t, cfg.block_out_channels[0], flip_sin_to_cos=cfg.flip_sin_to_cos,
                                   downscale_freq_shift=cfg.freq_shift, dtype=x.dtype)
         temb = temb.expand(x.shape[0], -1)
         temb = self.time_embedding.linear_2(silu(self.time_embedding.linear_1(temb)))

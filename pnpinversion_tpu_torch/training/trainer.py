@@ -1,0 +1,356 @@
+"""Edit-conditioned latent-diffusion training on one GPU (port of
+``pnpinversion_tpu/training/trainer.py``).
+
+The objective is the JAX trainer's (``ddpm_edit.py`` semantics):
+
+- z = a sample of the VAE posterior of the edited image times the scaling
+  factor; the image conditioning is the posterior **mode** of the source
+  image, unscaled; the prompt and the null prompt are encoded in one text
+  call;
+- per-item classifier-free dropout from uniforms r (``cond_dropout_masks``);
+- ``q_sample`` in f32, cast to the compute dtype; the UNet on
+  ``cat([x_noisy, img_cond], channel)``; the eps MSE per item over its
+  pixels in f32, then the batch mean.
+
+bf16 compute runs on f32 master weights: the UNet's layers cast each f32
+weight to the activation's dtype, so the gradients come back to the masters
+in f32, as the JAX trainer's ``cast(params)`` gives them. The VAE and the
+text encoder are frozen.
+
+A step sums the microbatches' losses and f32 gradients and divides both by
+the number of microbatches (the JAX ``lax.scan``), takes the global gradient
+norm, applies optax's ``chain(clip_by_global_norm, adamw)`` in optax's order
+of operations (``adamw_update_``), then the EMA with LitEMA's warm-up.
+
+The draws (the posterior noise, the timesteps, the q_sample noise and the
+dropout uniforms) come from a ``torch.Generator``; the JAX trainer splits
+them from a key it folds the step into. The port seeds one generator per
+optimizer step from (seed, step) (``step_generator``), so a resumed run
+draws what an uninterrupted one draws without saving a generator's state.
+The loss also takes the draws explicitly, so tests can hand it the very
+values JAX draws.
+
+One device: the JAX trainer's dp/tp mesh and ZeRO-sharded moments are
+ROADMAP A12. Checkpoints are ``torch.save`` files ``<dir>/step_<n:08d>.pt``
+of the whole state; reading the JAX trainer's orbax checkpoints is A13
+(``convert.train_state_from_jax`` carries a live JAX state across).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.utils.checkpoint
+
+from pnpinversion_tpu_torch.configs import StableDiffusionConfig
+from pnpinversion_tpu_torch.models.clip_text import CLIPTextModel
+from pnpinversion_tpu_torch.models.unet import UNet
+from pnpinversion_tpu_torch.models.vae import VAE
+from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+
+F32 = np.float32
+Draws = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Hyperparameters, defaults = configs/train.yaml + torch AdamW (the JAX
+    ``TrainConfig`` less ``zero``, which needs a dp mesh: A12)."""
+
+    base_lr: float = 1e-4
+    scale_lr: bool = True            # lr = accum * n_dp * batch * base_lr
+    warmup_steps: int = 0
+    f_start: float = 1e-6            # LambdaLinearScheduler f_start
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    clip_grad: float = 0.0
+    accum: int = 4                   # accumulate_grad_batches
+    uncond_prob: float = 0.05
+    ema_decay: float = 0.9999        # LitEMA default
+    dtype: torch.dtype = torch.bfloat16  # compute dtype; master weights stay f32
+    remat: bool = False              # checkpoint the UNet forward: its activations
+    # are recomputed in the backward (the flash forward runs twice)
+
+
+def lambda_linear_lr(cfg: TrainConfig, n_dp: int, batch_per_step: int
+                     ) -> Callable[[float], float]:
+    """LambdaLinearScheduler with the shipped near-infinite cycle: linear
+    f_start -> 1 over the warm-up, then constant; in f32 as the JAX schedule
+    computes it."""
+    lr = cfg.base_lr
+    if cfg.scale_lr:
+        lr = cfg.accum * n_dp * batch_per_step * cfg.base_lr
+
+    def sched(step) -> float:
+        if cfg.warmup_steps <= 0:
+            return float(F32(lr))
+        f = F32(cfg.f_start) + F32(1.0 - cfg.f_start) * np.minimum(
+            F32(step) / F32(cfg.warmup_steps), F32(1.0))
+        return float(F32(lr) * f)
+
+    return sched
+
+
+def extend_conv_in(unet: UNet, in_channels: int) -> UNet:
+    """A copy of ``unet`` whose conv_in takes ``in_channels`` input channels,
+    the new ones zero (axis 1 of the OIHW weight): the ip2p initialisation,
+    so that step 0 computes the text-to-image model's eps. Same dtype and
+    device as ``unet``."""
+    w = unet.conv_in.weight
+    if in_channels < w.shape[1]:
+        raise ValueError(f"conv_in has {w.shape[1]} input channels, more than {in_channels}")
+    sd = {k: v.detach().clone() for k, v in unet.state_dict().items()}
+    if in_channels > w.shape[1]:
+        pad = torch.zeros((w.shape[0], in_channels - w.shape[1]) + w.shape[2:], dtype=w.dtype,
+                          device=w.device)
+        sd["conv_in.weight"] = torch.cat([sd["conv_in.weight"], pad], dim=1)
+    with torch.device("meta"):
+        out = UNet(dataclasses.replace(unet.config, in_channels=in_channels))
+    out.load_state_dict(sd, strict=True, assign=True)
+    return out.requires_grad_(False)
+
+
+def cond_dropout_masks(r: torch.Tensor, uncond_prob: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(drop_prompt, keep_image) from per-item uniforms r: the exact
+    ddpm_edit.py rule (r < 2u drops the prompt, u <= r < 3u the image)."""
+    u = uncond_prob
+    drop_prompt = r < 2 * u
+    keep_image = ~((r >= u) & (r < 3 * u))
+    return drop_prompt, keep_image
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of optimizer step ``step``'s draws, seeded from (seed,
+    step): the JAX runner's ``fold_in(root, step)``. A resumed run draws what
+    an uninterrupted one draws."""
+    s = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+def adamw_update_(params: List[torch.Tensor], grads: List[torch.Tensor],
+                  mu: List[torch.Tensor], nu: List[torch.Tensor], count: int, lr: float,
+                  cfg: TrainConfig, grad_norm: torch.Tensor) -> None:
+    """One step of optax's ``chain(clip_by_global_norm(clip_grad), adamw(lr,
+    b1, b2, eps, weight_decay))`` in place, in optax's order of operations:
+    the clip ``where(norm < max, g, g / norm * max)`` (only when clip_grad >
+    0); the moments ``(1-b) g^k + b m``; the bias corrections with the
+    incremented ``count``; ``mu_hat / (sqrt(nu_hat) + eps)``; plus
+    ``wd * p`` on every tensor (optax's adamw has no mask); times ``-lr``
+    (the schedule at ``count``); added to the parameters. ``grads`` are
+    overwritten."""
+    b1, b2 = cfg.betas
+    if cfg.clip_grad > 0 and not bool(grad_norm < cfg.clip_grad):
+        torch._foreach_div_(grads, grad_norm)
+        torch._foreach_mul_(grads, cfg.clip_grad)
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+    n = F32(count + 1)
+    bc1, bc2 = (float(F32(1.0) - F32(b) ** n) for b in (b1, b2))
+    torch._foreach_copy_(grads, mu)  # the update goes into grads' storage
+    torch._foreach_div_(grads, bc1)
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, cfg.eps)
+    torch._foreach_div_(grads, denom)
+    del denom
+    torch._foreach_add_(grads, params, alpha=cfg.weight_decay)
+    torch._foreach_mul_(grads, -lr)
+    torch._foreach_add_(params, grads)
+
+
+def _f32_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A deep copy of ``module`` with f32 parameters and buffers (memory
+    format kept), built on the meta device so the source is read once."""
+    sd = {k: v.detach().to(torch.float32, copy=True) for k, v in module.state_dict().items()}
+    with torch.device("meta"):
+        out = type(module)(module.config)
+    out.load_state_dict(sd, strict=True, assign=True)
+    return out
+
+
+class EditTrainer:
+    """The train and validation steps and the training state on one device.
+
+    State: ``unet`` (the f32 masters, an ``in_channels``-channel UNet that
+    requires grad), ``ema`` (an f32 UNet), the Adam moments ``mu``/``nu``
+    (f32, by parameter name), ``count`` (Adam's and the schedule's) and
+    ``step``. ``frozen``: {"vae": VAE, "text": CLIPTextModel}, used as they
+    are (a bf16 pipeline's modules compute in bf16 on bf16 inputs)."""
+
+    def __init__(self, model_config: StableDiffusionConfig, frozen: Dict[str, torch.nn.Module],
+                 unet: UNet, cfg: TrainConfig, batch_per_step: int, null_ids):
+        self.config = model_config
+        self.cfg = cfg
+        self.vae: VAE = frozen["vae"]
+        self.text: CLIPTextModel = frozen["text"]
+        self._lr = lambda_linear_lr(cfg, 1, batch_per_step)
+        self.unet = _f32_copy(unet).requires_grad_(True)
+        self.ema = _f32_copy(unet).requires_grad_(False)
+        self.device = self.unet.conv_in.weight.device
+        self.names = [n for n, _ in self.unet.named_parameters()]
+        self.params = [p for _, p in self.unet.named_parameters()]
+        ema = dict(self.ema.named_parameters())
+        self.ema_params = [ema[n] for n in self.names]
+        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.count = 0
+        self.step = 0
+        self.null_ids = torch.as_tensor(null_ids).to(device=self.device, dtype=torch.int64)
+        self.acp = torch.as_tensor(make_ddim_schedule().alphas_cumprod, device=self.device)
+        self.latent_factor = 2 ** (len(model_config.vae.block_out_channels) - 1)
+
+    # ------------------------------------------------------------------ loss
+    def draw(self, batch: int, image_hw: int, generator: Optional[torch.Generator]) -> Draws:
+        """One microbatch's draws, in the JAX trainer's order of keys: the
+        posterior noise z, the timesteps t, the q_sample noise and the
+        dropout uniforms r."""
+        h = image_hw // self.latent_factor
+        shape = (batch, h, h, self.config.vae.latent_channels)
+        kw = dict(generator=generator, device=self.device)
+        return {"z": torch.randn(shape, **kw),
+                "t": torch.randint(0, self.acp.shape[0], (batch,), **kw),
+                "noise": torch.randn(shape, **kw),
+                "r": torch.rand((batch,), **kw)}
+
+    def microbatch_loss(self, unet: UNet, edited: torch.Tensor, cond_image: torch.Tensor,
+                        ids: torch.Tensor, draws: Draws) -> torch.Tensor:
+        """The f32 loss of one microbatch: edited/cond_image (B, H, W, 3) f32
+        in [-1, 1], ids (B, 77), ``draws`` as ``draw`` gives them."""
+        dt = self.cfg.dtype
+        b = edited.shape[0]
+        with torch.no_grad():
+            z = self.vae.encode(edited.to(dt), noise=draws["z"].to(dt))
+            img_cond = self.vae.encode(cond_image.to(dt), scale=False)
+            ids2 = torch.cat([ids, self.null_ids.expand(b, -1)])
+            ctx2 = self.text(ids2, dtype=dt)
+            drop_prompt, keep_image = cond_dropout_masks(draws["r"], self.cfg.uncond_prob)
+            ctx = torch.where(drop_prompt[:, None, None], ctx2[b:], ctx2[:b])
+            img_cond = img_cond * keep_image[:, None, None, None].to(dt)
+            t = draws["t"]
+            a = self.acp[t][:, None, None, None]
+            noise = draws["noise"].to(dt)
+            x_noisy = (torch.sqrt(a) * z.float()
+                       + torch.sqrt(1.0 - a) * noise.float()).to(dt)
+            x_in = torch.cat([x_noisy, img_cond], dim=-1)
+
+        def unet_fwd(x, tt, cc):
+            return unet(x, tt, cc)[0]
+
+        if self.cfg.remat and torch.is_grad_enabled():
+            eps = torch.utils.checkpoint.checkpoint(unet_fwd, x_in, t, ctx, use_reentrant=False)
+        else:
+            eps = unet_fwd(x_in, t, ctx)
+        err = (eps.float() - noise.float()) ** 2
+        return torch.mean(torch.mean(err, dim=(1, 2, 3)))
+
+    def _microbatches(self, batch: Dict[str, Any], generator, draws):
+        edited, cond_image, ids = (torch.as_tensor(batch[k], device=self.device)
+                                   for k in ("edited", "cond_image", "ids"))
+        for i in range(edited.shape[0]):
+            d = (draws[i] if draws is not None
+                 else self.draw(edited.shape[1], edited.shape[2], generator))
+            yield edited[i].float(), cond_image[i].float(), ids[i].long(), d
+
+    # ------------------------------------------------------------------ step
+    def train_step(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
+                   draws: Optional[Sequence[Draws]] = None) -> Dict[str, torch.Tensor]:
+        """batch: edited/cond_image (A, B, H, W, 3) f32, ids (A, B, 77); A
+        microbatches, each drawing from ``generator`` (or taking
+        ``draws[i]``). Returns {"loss", "grad_norm"} (f32 scalars)."""
+        for p in self.params:
+            p.grad = None
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        n = 0
+        for edited, cond_image, ids, d in self._microbatches(batch, generator, draws):
+            mb = self.microbatch_loss(self.unet, edited, cond_image, ids, d)
+            mb.backward()
+            loss = loss + mb.detach()
+            n += 1
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        for p in self.params:
+            p.grad = None
+        torch._foreach_div_(grads, n)
+        loss = loss / n
+        gnorm = global_norm(grads)
+        with torch.no_grad():
+            adamw_update_(self.params, grads, self.mu, self.nu, self.count,
+                          self._lr(self.count), self.cfg, gnorm)
+            del grads
+            self.count += 1
+            self.step += 1
+            # LitEMA's warm-up on the incremented step, in f32
+            d = min(F32(self.cfg.ema_decay), (F32(1.0) + F32(self.step))
+                    / (F32(10.0) + F32(self.step)))
+            torch._foreach_mul_(self.ema_params, float(d))
+            torch._foreach_add_(self.ema_params, self.params, alpha=float(F32(1.0) - d))
+        return {"loss": loss, "grad_norm": gnorm}
+
+    @torch.no_grad()
+    def val_step(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
+                 draws: Optional[Sequence[Draws]] = None) -> torch.Tensor:
+        """The loss under the EMA weights (the reference copies the EMA into
+        the model for its validation pass)."""
+        losses = [self.microbatch_loss(self.ema, e, c, i, d)
+                  for e, c, i, d in self._microbatches(batch, generator, draws)]
+        return torch.stack(losses).sum() / len(losses)
+
+    def learning_rate(self, step: Optional[int] = None) -> float:
+        return self._lr(self.step if step is None else step)
+
+    # ---------------------------------------------------------------- state
+    def state_dict(self) -> Dict[str, Any]:
+        """The whole training state, by parameter name."""
+        return {"params": {n: p.detach() for n, p in zip(self.names, self.params)},
+                "ema": {n: p.detach() for n, p in zip(self.names, self.ema_params)},
+                "mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu)),
+                "count": self.count, "step": self.step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copies a state (``state_dict``'s layout; tensors or numpy arrays,
+        e.g. ``convert.train_state_from_jax``'s) into this trainer."""
+        for key, dst in (("params", self.params), ("ema", self.ema_params), ("mu", self.mu),
+                         ("nu", self.nu)):
+            src = state[key]
+            if set(src) != set(self.names):
+                raise KeyError(f"{key}: the state's names differ from the UNet's: "
+                               f"{sorted(set(src) ^ set(self.names))[:5]}")
+            for name, t in zip(self.names, dst):
+                v = src[name]
+                t.copy_(v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                    np.array(v, dtype=np.float32)))
+        self.count, self.step = int(state["count"]), int(state["step"])
+
+    def save(self, directory: str) -> str:
+        """Writes the state to ``<directory>/step_<n:08d>.pt``; returns its path."""
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(os.path.abspath(directory), f"step_{self.step:08d}.pt")
+        torch.save(self.state_dict(), path + ".tmp")
+        os.replace(path + ".tmp", path)
+        return path
+
+    def restore(self, path: Optional[str] = None, directory: Optional[str] = None) -> bool:
+        """Loads ``path``, or the latest ``step_*.pt`` in ``directory``;
+        returns False (a fresh run) when there is none."""
+        if path is None:
+            if directory is None:
+                raise ValueError("restore: give a checkpoint path or a directory")
+            steps = sorted(f for f in (os.listdir(directory) if os.path.isdir(directory) else [])
+                           if f.startswith("step_") and f.endswith(".pt"))
+            if not steps:
+                return False
+            path = os.path.join(directory, steps[-1])
+        self.load_state_dict(torch.load(path, map_location=self.device, weights_only=True))
+        return True

@@ -151,3 +151,28 @@ def assert_panels_close(got: np.ndarray, want: np.ndarray, max_levels: int = 2) 
     package's limit for its own batched path (tests/test_sharded_runner.py)."""
     assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
     assert np.abs(got.astype(int) - want.astype(int)).max() <= max_levels
+
+
+def make_pair_dataset(root: str, n_items: int = 6, res: int = 20, seeds_per_item: int = 2) -> str:
+    """An ip2p seeds.json dataset of random JPEG pairs under ``root``."""
+    import json
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    seeds = []
+    for i in range(n_items):
+        name = f"{i:07d}"
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        with open(os.path.join(d, "prompt.json"), "w") as f:
+            json.dump({"input": f"a cat {i}", "edit": f"make it {i}", "output": f"a dog {i}"}, f)
+        for s in range(seeds_per_item):
+            for suffix in ("0", "1"):
+                arr = rng.integers(0, 255, (res, res, 3), dtype=np.uint8)
+                Image.fromarray(arr).save(os.path.join(d, f"{s}_{suffix}.jpg"))
+        seeds.append([name, list(range(seeds_per_item))])
+    with open(os.path.join(root, "seeds.json"), "w") as f:
+        json.dump(seeds, f)
+    return root

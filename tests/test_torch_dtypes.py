@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import pipeline_params, seeded_images, tiny_configs
+from _torch_parity import pipeline_params, rel_err, seeded_images, tiny_configs
 from pnpinversion_tpu_torch.models.unet import UNet
 from pnpinversion_tpu_torch.models.vae import VAE
 from pnpinversion_tpu_torch.pipeline import SDPipeline
@@ -233,3 +233,124 @@ def test_f32_steps_of_the_bf16_families():
                                                                               jnp.float32))
     temb = tsd.forward_embed(m0, cond[:, None][:, :, 0], tokens)
     assert str(jemb.dtype) == str(temb.dtype).replace("torch.", "") == "float32"
+
+
+def test_trainer_dtypes_match_jax():
+    """The training step's dtypes at bf16 compute, as the JAX trainer has
+    them (its loss traced with ``value_and_grad`` under ``eval_shape``, the
+    port's step run for real on the CPU): the VAE, the text tower and the
+    UNet see bf16; the loss is f32; the gradients reach the f32 masters in
+    f32; the EMA and Adam's moments are f32. The UNet's noisy latent is the
+    f32 ``q_sample`` rounded to bf16 once (checked bit for bit)."""
+    import types
+
+    from pnpinversion_tpu.training import trainer as jtr
+    from pnpinversion_tpu_torch.models.clip_text import CLIPTextModel
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    jseen, seen = collections.defaultdict(set), collections.defaultdict(set)
+    jcfg, tcfg = tiny_configs(8)
+
+    def moments(params, image, config):
+        jseen["encode"].add(str(image.dtype))
+        b, h, w, _ = image.shape
+        z = jnp.zeros((b, h // 2, w // 2, 4), image.dtype)
+        return z, z
+
+    def text(params, ids, config, dtype=jnp.float32):
+        jseen["text"].add(jnp.dtype(dtype).name)
+        return jnp.zeros(ids.shape + (config.width,), dtype)
+
+    def unet(params, x, t, context, config, **_):
+        jseen["unet"].add(str(x.dtype))
+        return x[..., :4] * params["conv_in"]["kernel"][0, 0, 0, 0].astype(x.dtype), {}
+
+    f32 = jax.tree.map(lambda x: jnp.zeros(x.shape, jnp.float32), pipeline_params(jcfg, seed=0))
+    fake = types.SimpleNamespace(cfg=jtr.TrainConfig(dtype=jnp.bfloat16), config=jcfg,
+                                 null_ids=jnp.zeros((77,), jnp.int32),
+                                 schedule_acp=np.full((1000,), 0.5, np.float32))
+    imgs = jnp.zeros((2, 16, 16, 3), jnp.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtr, "vae_encode_moments", moments)
+        mp.setattr(jtr, "clip_text_apply", text)
+        mp.setattr(jtr, "unet_apply", unet)
+        loss, grads = jax.eval_shape(jax.value_and_grad(
+            lambda p: jtr.EditTrainer._microbatch_loss(
+                fake, p, {"vae": f32["vae"], "text": f32["text"]}, imgs, imgs,
+                jnp.zeros((2, 77), jnp.int32), jax.random.PRNGKey(0))), f32["unet"])
+    jseen["loss"].add(str(loss.dtype))
+    jseen["grads"] |= {str(g.dtype) for g in jax.tree.leaves(grads)}
+
+    pipe = SDPipeline.create(tcfg, num_ddim_steps=STEPS, device="cpu", dtype=torch.bfloat16)
+    trainer = tr.EditTrainer(tcfg, {"vae": pipe.vae, "text": pipe.text_encoder}, pipe.unet,
+                             tr.TrainConfig(accum=1, dtype=torch.bfloat16), 2,
+                             pipe.tokenize([""])[0])
+    forward, encode, text_fwd, norm = UNet.forward, VAE.encode, CLIPTextModel.forward, tr.global_norm
+    calls = {}
+    name = lambda dt: str(dt).replace("torch.", "")
+
+    def unet_forward(self, x, *args, **kwargs):
+        seen["unet"].add(name(x.dtype))
+        calls["x_in"] = x.detach()
+        return forward(self, x, *args, **kwargs)
+
+    def vae_encode(self, image, *args, **kwargs):
+        seen["encode"].add(name(image.dtype))
+        out = encode(self, image, *args, **kwargs)
+        calls.setdefault("z", out)
+        return out
+
+    def text_forward(self, ids, dtype=torch.float32):
+        seen["text"].add(name(dtype))
+        return text_fwd(self, ids, dtype=dtype)
+
+    def grad_norm(tensors):
+        seen["grads"] |= {name(g.dtype) for g in tensors}
+        return norm(tensors)
+
+    rng = np.random.RandomState(4)
+    batch = {"edited": rng.uniform(-1, 1, (1, 2, 16, 16, 3)).astype(np.float32),
+             "cond_image": rng.uniform(-1, 1, (1, 2, 16, 16, 3)).astype(np.float32),
+             "ids": pipe.tokenize(["make it red", "add a hat"])[None]}
+    draws = trainer.draw(2, 16, torch.Generator().manual_seed(0))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(UNet, "forward", unet_forward)
+        mp.setattr(VAE, "encode", vae_encode)
+        mp.setattr(CLIPTextModel, "forward", text_forward)
+        mp.setattr(tr, "global_norm", grad_norm)
+        m = trainer.train_step(batch, draws=[draws])
+    seen["loss"].add(name(m["loss"].dtype))
+    assert dict(seen) == dict(jseen)
+    assert jseen["unet"] == jseen["encode"] == jseen["text"] == {"bfloat16"}
+    assert jseen["loss"] == jseen["grads"] == {"float32"}
+    state = trainer.state_dict()
+    assert {p.dtype for part in ("params", "ema", "mu", "nu")
+            for p in state[part].values()} == {torch.float32}
+    a = trainer.acp[draws["t"]][:, None, None, None]
+    want = (torch.sqrt(a) * calls["z"].float()
+            + torch.sqrt(1.0 - a) * draws["noise"].to(torch.bfloat16).float()).to(torch.bfloat16)
+    assert torch.equal(calls["x_in"][..., :4], want)
+
+
+@pytest.mark.parametrize("weights,compute", [("bfloat16", "float32"), ("float32", "bfloat16")])
+def test_text_tower_computes_in_the_dtype_asked(weights, compute):
+    """The text tower returns (and computes in) the dtype asked for whatever
+    its weights' dtype, as the JAX package's ``clip_text_apply`` casts each
+    kernel to the activation's dtype: the JAX trainer encodes in its compute
+    dtype on a pipeline of another. A bf16 tower asked for f32 raised before
+    (its projections were plain ``nn.Linear``)."""
+    from pnpinversion_tpu.models.clip_text import clip_text_apply
+    from pnpinversion_tpu_torch.convert import from_jax_params
+
+    jcfg, tcfg = tiny_configs()
+    tree = pipeline_params(jcfg, seed=3)["text"]
+    ids = np.random.RandomState(0).randint(0, 128, (2, 77)).astype(np.int32)
+    jw, jc = getattr(jnp, weights), getattr(jnp, compute)
+    want = clip_text_apply(jax.tree.map(lambda x: jnp.asarray(x, jw), tree), jnp.asarray(ids),
+                           jcfg.text, dtype=jc)
+    module = from_jax_params(tree, tcfg.text).to(getattr(torch, weights))
+    with torch.no_grad():
+        got = module(torch.as_tensor(ids).long(), dtype=getattr(torch, compute))
+    assert str(got.dtype).replace("torch.", "") == str(want.dtype) == compute
+    tol = 1e-5 if compute == "float32" else 5e-2  # bf16 rounding of every layer otherwise
+    assert rel_err(got, np.asarray(want.astype(jnp.float32))) <= tol

@@ -32,7 +32,10 @@ def cuda_device():
     (16, 1024, 1024, 80, True),
     # the batched class at 2 images: 3 and 4 rows each
     (6, 4096, 4096, 40, True), (6, 1024, 1024, 80, True), (8, 4096, 4096, 40, True),
-    (8, 1024, 1024, 80, True)])
+    (8, 1024, 1024, 80, True),
+    # training at 256^2 crops: the 32^2 sites of down_blocks[0]/up_blocks[3]
+    # (8 heads of d = 40) at batch 8 and 32
+    (8, 1024, 1024, 40, True), (32, 1024, 1024, 40, True)])
 def test_kernel_matches_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
 
@@ -178,7 +181,10 @@ def _bwd_rel_errs(got, want):
     # batched null-text at 2, 4 and 8 images (one row each); pix2pix-zero's
     # batched class at 4 images (2 rows each) differentiates 8 rows at 32^2
     (2, 4096, 4096, 40, True), (2, 1024, 1024, 80, True), (8, 4096, 4096, 40, True),
-    (4, 1024, 1024, 80, True), (8, 1024, 1024, 80, True)])
+    (4, 1024, 1024, 80, True), (8, 1024, 1024, 80, True),
+    # training at 256^2 crops: every microbatch differentiates the 32^2
+    # sites of d = 40 at batch 8 and 32
+    (8, 1024, 1024, 40, True), (32, 1024, 1024, 40, True)])
 def test_bwd_kernels_match_plain_on_cuda(cuda_device, b, sq, sk, d, strided):
     q, k, v, out, lse, do = _bwd_inputs(cuda_device, b, 8, sq, sk, d, strided)
     scale = d ** -0.5
