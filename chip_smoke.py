@@ -83,9 +83,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the pipeline's UNet widened to 8 channels (bf16 over f32 masters, batch
    8, accumulation 2): 3 counted optimizer steps, which run the bf16
    forward and backward at the 32^2 sites of d = 40, a save, the next step
-   against itself with remat and after a restore, a validation step; every
-   shape that these paths launched a kernel at, in either dtype, must be
-   one that phase 3 held against the plain version;
+   against itself with remat and after a restore, a validation step; then
+   the port's own entry points on local weights (``entry_points_phase``):
+   an f16 SD1.4 HF directory written with the port's safetensors writer
+   (the VAE under the older attention names, a generated CLIP BPE
+   vocabulary) and a 4-image mini PIE-Bench, the weight-checking CLI on it,
+   ``runners.run_editing_p2p`` (f32, 2 images at ``ENTRY_STEPS``: weights
+   bit for bit, load seconds and GB/s, strips equal to ``P2PEditor``'s, a
+   rerun that skips) and ``runners.run_sweep`` (bf16, x4: strips equal to
+   ``BatchedDirectInversionP2P``'s), launches counted, and a TINY 8-channel
+   CompVis ``.ckpt`` loaded bit for bit; every shape that these paths
+   launched a kernel at, in either dtype, must be one that phase 3 held
+   against the plain version;
 9. the PIE-Bench evaluator at full width (CLIP ViT-L/14, DINO ViT-B/8,
    SqueezeNet LPIPS, random weights, f32) over the batched path's strips,
    written in the runners' layout with a synthetic mapping file: the CSV's
@@ -179,6 +188,11 @@ FLASH_CASES = [
 F32_FLASH_CASES = [
     (f"f32_rows{b}_{size}", b, 8, s, s, d, True, True)
     for b in (1, 2, 3, 4, 8, 12, 16) for size, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80))
+] + [
+    # the weight-checking CLI's forward smoke (python -m
+    # pnpinversion_tpu_torch.convert) runs the f32 UNet on a 32^2 latent: its
+    # first level's sites are 1024 tokens of d = 40
+    ("f32_convert_smoke_32x32_d40", 1, 8, 1024, 1024, 40, True, False),
 ] + EDGE_CASES
 # (..., dtype): every case names the kernel family it checks
 FLASH_CASES = ([c + ("bf16",) for c in FLASH_CASES]
@@ -2852,6 +2866,325 @@ def stylediffusion_phase(pipe) -> dict:
     return out
 
 
+ENTRY_DIR = "build/smoke_entry"  # git-ignored; removed when the phase ends
+# DDIM steps of the runner's and the sweep's edits: 10 keeps the phase near
+# 25 s (the shapes do not depend on the steps; the smoke reached 826.7 s with
+# 50 on a slow host); scripts/time_torch_entry_points.py times them at 50
+ENTRY_STEPS = 10
+ENTRY_RUNNER_IMAGES = 2  # category "0" of the mini PIE-Bench; the sweep takes all BATCH
+
+
+def _bpe_vocab(root: str, prompts) -> str:
+    """A tiny CLIP BPE vocabulary in the HF layout (``vocab.json`` +
+    ``merges.txt``): every byte and its word-final form, merges that build
+    the prompts' words left to right, the two specials. Returns its dir."""
+    from pnpinversion_tpu_torch.utils.tokenizer import _bytes_to_unicode
+
+    alphabet = list(_bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(alphabet + [c + "</w>" for c in alphabet])}
+    merges = []
+    for word in sorted({w for p in prompts for w in p.lower().split()}):
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            merge = f"{parts[0]} {parts[1]}"
+            if merge not in merges:
+                merges.append(merge)
+            parts = [parts[0] + parts[1]] + parts[2:]
+            vocab.setdefault(parts[0], len(vocab))
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(root, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return root
+
+
+_OLD_VAE_ATTN = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
+
+
+def _write_hf_checkpoint(root: str, modules: dict) -> int:
+    """The modules as an HF SD directory of f16 safetensors (the VAE under
+    the older diffusers attention names), written with the port's own
+    writer. Returns the bytes written."""
+    from pnpinversion_tpu_torch.convert.safetensors_io import write_safetensors
+
+    total = 0
+    for part, sub in (("unet", "unet"), ("vae", "vae"), ("text", "text_encoder")):
+        sd = {}
+        for k, v in modules[part].state_dict().items():
+            for new, old in _OLD_VAE_ATTN.items():
+                if part == "vae" and f".attentions.0.{new}." in k:
+                    k = k.replace(f".attentions.0.{new}.", f".attentions.0.{old}.")
+            sd[k] = v.detach().to("cpu", torch.float16)
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        path = os.path.join(root, sub, "diffusion_pytorch_model.safetensors")
+        write_safetensors(path, sd)
+        total += os.path.getsize(path)
+    return total
+
+
+def _mini_pie_bench(root: str, n: int, size: int) -> str:
+    """A PIE-Bench ``data/`` of n seeded JPEG images with the cake prompts
+    (one pair each), LocalBlend on "cake", the first ENTRY_RUNNER_IMAGES in
+    category 0 and the rest in 1. Returns the data dir."""
+    from PIL import Image
+
+    from pnpinversion_tpu_torch.data.pie_bench import mask_encode
+
+    image = _random_images(8080, size)
+    data = os.path.join(root, "data")
+    mapping = {}
+    for i in range(n):
+        rel = f"{int(i >= ENTRY_RUNNER_IMAGES)}_random/{i:03d}.jpg"
+        path = os.path.join(data, "annotation_images", rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(image()).save(path)
+        src, tar = CAKE_PROMPTS[i]
+        mask = np.zeros((512, 512), np.uint8)
+        mask[128:384, 96:352] = 1
+        mapping[f"{i:09d}"] = {
+            "image_path": rel, "original_prompt": src.replace("round", "[round]"),
+            "editing_prompt": tar.replace("square", "[square]"),
+            "editing_instruction": "make the cake square",
+            "editing_type_id": str(int(i >= ENTRY_RUNNER_IMAGES)), "blended_word": "cake cake",
+            "mask": mask_encode(mask)}
+    with open(os.path.join(data, "mapping_file.json"), "w") as f:
+        json.dump(mapping, f)
+    return data
+
+
+class _CreateSpy:
+    """Records every pipeline ``SDPipeline.create`` makes, and its seconds to
+    a synchronize (the real create runs); a context manager."""
+
+    def __enter__(self):
+        from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+        self.pipes, self.seconds, self._orig = [], [], SDPipeline.__dict__["create"]
+        orig = self._orig.__func__
+
+        def create(cls, *args, **kwargs):
+            pipe, dt = _sync_time(lambda: orig(cls, *args, **kwargs))
+            self.pipes.append(pipe)
+            self.seconds.append(dt)
+            return pipe
+
+        SDPipeline.create = classmethod(create)
+        return self
+
+    def __exit__(self, *exc):
+        from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+        SDPipeline.create = self._orig
+
+
+def _jpeg_bytes(strip: np.ndarray) -> bytes:
+    """The bytes PIL writes for a strip saved as .jpg (the runners' save)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(strip).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def _same_modules(pipe, seeded: dict) -> int:
+    """Fails unless every tensor of the pipeline's modules equals the seeded
+    one cast to f16 and then to the pipeline's dtype, bit for bit; returns
+    the tensors checked."""
+    n = 0
+    for part, module in (("unet", pipe.unet), ("vae", pipe.vae), ("text", pipe.text_encoder)):
+        want = seeded[part].state_dict()
+        for k, v in module.state_dict().items():
+            ref = want[k].to(torch.float16).to(v.dtype)
+            if not torch.equal(v, ref):
+                raise AssertionError(f"loaded {part}.{k} differs from the seeded weight")
+            n += 1
+    return n
+
+
+def entry_points_phase(config=None, steps: int = ENTRY_STEPS, device: str = "cuda") -> dict:
+    """The port's own entry points on local weights, at full SD1.4 width:
+
+    - an HF SD1.4 directory written with the port's safetensors writer (seeded
+      f32 modules saved as f16, the VAE under the older attention names, a
+      tiny CLIP BPE vocabulary in ``tokenizer/``) and a BATCH-image 512^2
+      mini PIE-Bench;
+    - ``runners.run_editing_p2p.main`` for directinversion+p2p on
+      ENTRY_RUNNER_IMAGES images at ``steps`` (the f32 pipeline, as the JAX
+      runner's): its pipeline's every tensor bit for bit against the seeded
+      one cast to f16, the load's seconds and GB/s, its launches against the
+      code's own count (the f32 forward only), each strip (512x2048x3 uint8)
+      equal to ``P2PEditor``'s on the same modules with the runner's
+      arguments (as JPEG bytes), and a rerun that skips and leaves the files'
+      mtimes alone;
+    - ``runners.run_sweep.main`` at batch BATCH (auto) over the BATCH images
+      in bf16: its pipeline bit for bit, its launches (one batch: the bf16
+      forward only), each strip equal to ``BatchedDirectInversionP2P``'s on
+      the same inputs, images in their slots;
+    - a CompVis ``.ckpt`` of InstructPix2Pix's 8-channel UNet at TINY (the
+      port's writer; TINY keeps the phase's budget), loaded bit for bit.
+
+    ``config`` (SD14 by default) and ``device`` let a CPU rehearsal run it
+    at TINY."""
+    import shutil
+
+    from pnpinversion_tpu_torch import configs
+    from pnpinversion_tpu_torch.control.p2p import make_p2p_control, stack_tensors
+    from pnpinversion_tpu_torch.convert.ldm import ldm_state_dict
+    from pnpinversion_tpu_torch.data.pie_bench import PieBenchDataset, load_image
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.parallel.sweep import BatchedDirectInversionP2P
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+    from pnpinversion_tpu_torch.runners import run_editing_p2p, run_sweep
+    from pnpinversion_tpu_torch.utils.image import make_strip, txt_draw
+
+    config = config or configs.SD14
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    ckpt = os.path.join(ENTRY_DIR, "sd14")
+    out: dict = {"steps": steps}
+    try:
+        seeded_pipe = SDPipeline.create(config, seed=13, device=device, dtype=torch.float32)
+        seeded = {"unet": seeded_pipe.unet, "vae": seeded_pipe.vae,
+                  "text": seeded_pipe.text_encoder}
+        nbytes, t_write = _sync_time(lambda: _write_hf_checkpoint(ckpt, seeded))
+        _bpe_vocab(os.path.join(ckpt, "tokenizer"), [t for p in CAKE_PROMPTS for t in p])
+        size = config.image_size
+        data = _mini_pie_bench(ENTRY_DIR, BATCH, size)
+        out.update(checkpoint_gb=nbytes / 1e9, write_s=t_write)
+        # the weight-checking CLI on the directory (SD1.4's key sets, forward smokes)
+        from pnpinversion_tpu_torch.convert import __main__ as convert_cli
+
+        manifest, t_cli = _sync_time(lambda: convert_cli.main(
+            ["--sd14", ckpt, "--root", ENTRY_DIR, "--device", device,
+             "--manifest", os.path.join(ENTRY_DIR, "manifest.json")]))
+        out["convert_cli"] = {"s": t_cli, **{part: {k: manifest["models"]["sd14"][part][k] for k in
+                                                    ("keys_total", "keys_consumed",
+                                                     "tensors_filled")}
+                                             for part in ("unet", "vae", "text")}}
+        common = ["--data_path", data, "--checkpoint_dir", ckpt, "--num_ddim_steps", str(steps),
+                  "--device", device]
+
+        # the per-image runner, f32
+        runner_out = os.path.join(ENTRY_DIR, "output")
+        log = os.path.join(ENTRY_DIR, "runner_log.jsonl")
+        _reset_counts()
+        with _CreateSpy() as spy:
+            _, t_run = _sync_time(lambda: run_editing_p2p.main(
+                common + ["--output_path", runner_out, "--edit_category_list", "0",
+                          "--run_log", log]))
+        pipe = spy.pipes[0]
+        counts = _check_f32_launches("runner directinversion+p2p",
+                                     ENTRY_RUNNER_IMAGES * 2 * steps)
+        if pipe.dtype != torch.float32 or type(pipe.tokenizer).__name__ != "CLIPBPETokenizer":
+            raise AssertionError(f"runner pipeline {pipe.dtype} {type(pipe.tokenizer)}")
+        checked = _same_modules(pipe, seeded)
+        events = [json.loads(line) for line in open(log)]
+        edit_s = [e["seconds"] for e in events if e["event"] == "image_done"]
+        items = list(PieBenchDataset(data).items())
+        editor = P2PEditor(pipe)
+        paths = []
+        for item in items[:ENTRY_RUNNER_IMAGES]:
+            path = os.path.join(runner_out, "directinversion+p2p", "annotation_images",
+                                os.path.relpath(item.image_path,
+                                                os.path.join(data, "annotation_images")))
+            want = editor("directinversion+p2p", image_path=item.image_path,
+                          **run_editing_p2p.edit_kwargs(item))
+            _check_strip_size(want, size)
+            with open(path, "rb") as f:
+                if f.read() != _jpeg_bytes(want):
+                    raise AssertionError(f"{path}: the runner's strip is not P2PEditor's")
+            paths.append(path)
+        mtimes = [os.stat(p).st_mtime_ns for p in paths]
+        run_editing_p2p.main(common + ["--output_path", runner_out, "--edit_category_list", "0"])
+        if [os.stat(p).st_mtime_ns for p in paths] != mtimes:
+            raise AssertionError("a rerun of the runner rewrote existing strips")
+        load_s = spy.seconds[0]
+        out["runner"] = {"images": len(paths), "run_s": t_run, "edit_s": edit_s,
+                         "s_per_image": sum(edit_s) / len(edit_s),
+                         "load_s": load_s, "load_gb_per_s": nbytes / 1e9 / load_s,
+                         "tensors_bit_for_bit": checked, "launches": counts,
+                         "strips_equal_editor": True, "rerun_skipped": True}
+        del editor, pipe, spy
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the one-GPU sweep, bf16 (auto batch: BATCH on the card)
+        sweep_out = os.path.join(ENTRY_DIR, "sweep")
+        _reset_counts()
+        with _CreateSpy() as spy:
+            done, t_sweep = _sync_time(lambda: run_sweep.main(
+                common + ["--output_path", sweep_out, "--edit_category_list", "0", "1"]))
+        pipe = spy.pipes[0]
+        counts = _counts()
+        want_counts = {"fwd": FLASH_SITES * 2 * steps, "prep": 0, "main": 0, "convert": 0}
+        if device == "cuda" and (counts != want_counts or done["batch"] != BATCH):
+            raise AssertionError(f"sweep: launches {counts} at batch {done['batch']}, want "
+                                 f"{want_counts} (one batch of {BATCH})")
+        sweep_checked = _same_modules(pipe, seeded)
+        sweep = BatchedDirectInversionP2P(pipe)
+        controls = []
+        for item in items:
+            ctrl, tensors = make_p2p_control(
+                [item.source_prompt, item.target_prompt], pipe.tokenizer, num_steps=steps,
+                blend_words=(("cake",), ("cake",)), eq_params={"words": ("cake",),
+                                                              "values": (2,)},
+                num_lb_slots=pipe.num_lb_slots, lb_res=pipe.lb_res, latent_size=pipe.latent_size,
+                device=pipe.device)
+            controls.append((ctrl.spec, tensors))
+        images = np.stack([load_image(it.image_path, size) for it in items])
+        embs = pipe.encode_prompt([t for it in items for t in (it.source_prompt,
+                                                                it.target_prompt)])
+        recon, edits = sweep.edit_batch(controls[0][0], images, embs.reshape(
+            (len(items), 2) + embs.shape[1:]), pipe.encode_prompt(["", ""]), 7.5,
+            stack_tensors([t for _, t in controls]))
+        for i, item in enumerate(items):
+            text = txt_draw(f"source prompt: {item.source_prompt}\n"
+                            f"target prompt: {item.target_prompt}", target_size=(size, size))
+            path = os.path.join(sweep_out, "directinversion+p2p", "annotation_images",
+                                os.path.relpath(item.image_path,
+                                                os.path.join(data, "annotation_images")))
+            with open(path, "rb") as f:
+                if f.read() != _jpeg_bytes(make_strip([text, images[i], recon[i], edits[i]])):
+                    raise AssertionError(f"{path}: the sweep's strip is not the batched class's")
+        out["sweep"] = {"images": done["images"], "batch": done["batch"], "run_s": t_sweep,
+                        "load_s": spy.seconds[0],
+                        "load_gb_per_s": nbytes / 1e9 / spy.seconds[0],
+                        "s_per_image": (t_sweep - spy.seconds[0]) / done["images"],
+                        "tensors_bit_for_bit": sweep_checked, "launches": counts,
+                        "strips_equal_batched_class": True}
+        del sweep, pipe, spy
+        gc.collect()
+
+        # a CompVis .ckpt of the 8-channel UNet, at TINY
+        ip2p = dataclasses.replace(configs.TINY, unet=dataclasses.replace(configs.TINY.unet,
+                                                                          in_channels=8))
+        small = SDPipeline.create(ip2p, seed=14, device=device, dtype=torch.float32)
+        mods = {"unet": small.unet, "vae": small.vae, "text": small.text_encoder}
+        sd = ldm_state_dict(*(mods[k].state_dict() for k in ("unet", "vae", "text")), ip2p)
+        ldm_path = os.path.join(ENTRY_DIR, "ip2p", "tiny-ip2p.ckpt")
+        os.makedirs(os.path.dirname(ldm_path))
+        torch.save({"state_dict": {k: v.to("cpu", torch.float16) for k, v in sd.items()},
+                    "betas": torch.zeros(8)}, ldm_path)
+        loaded = SDPipeline.create(ip2p, checkpoint_dir=os.path.dirname(ldm_path),
+                                   device=device, dtype=torch.float32)
+        out["ldm_tiny_ip2p"] = {"tensors_bit_for_bit": _same_modules(loaded, mods),
+                                "conv_in": list(loaded.unet.conv_in.weight.shape)}
+    finally:
+        shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    print("entry_points", json.dumps(out), flush=True)
+    return out
+
+
+def _check_strip_size(strip, size: int) -> None:
+    if strip.shape != (size, 4 * size, 3) or strip.dtype != np.uint8:
+        raise AssertionError(f"strip {strip.shape} {strip.dtype}, want ({size}, {4 * size}, 3) "
+                             "uint8")
+
+
 BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
 F32_FWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_fwd_f32.cu"
 F32_BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd_f32.cu"
@@ -3021,6 +3354,9 @@ def main() -> int:
     instruct = instruct_phase()
     print("instruct", json.dumps(instruct), flush=True)
     training = training_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = entry_points_phase()
     print("path_shapes", json.dumps(_check_path_shapes()), flush=True)
     evaluation = eval_phase(batch_out)
     print("evaluation", json.dumps(evaluation), flush=True)
@@ -3049,6 +3385,9 @@ def main() -> int:
     for name, row in (("training", training["training"]),
                       ("training with remat", training["training"]["remat_after_restore"])):
         fwd_by_path[name], bwd_by_path[name] = row["launches"]["fwd"], row["launches"]["main"]
+    fwd_by_path[f"run_sweep x{BATCH}, {ENTRY_STEPS} steps"] = entry["sweep"]["launches"]["fwd"]
+    f32_by_path[f"run_editing_p2p, {ENTRY_RUNNER_IMAGES} images at {ENTRY_STEPS} steps"] = (
+        entry["runner"]["launches"]["fwd"])
     fwd_by_path[f"{BLD_STEPS} steps: blended-latent-diffusion"] = bld["launches"]["fwd"]
     fwd_by_path[f"batched blended-latent-diffusion x{BATCH}"] = bld["batch_launches"]["fwd"]
     for steps, rows in ((P2Z_STEPS, pix2pix_zero), (SD_STEPS, stylediffusion)):

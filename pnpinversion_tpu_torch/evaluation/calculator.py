@@ -8,8 +8,11 @@ full f32: TF32 off for matrix products and cuDNN convolutions
 (``utils.device.use_full_f32``), as the JAX package and the CPU reference
 compute. The towers carry random weights from ``seed`` (the JAX package's
 init distributions, drawn by the port's own init) or, for the parity tests,
-a JAX calculator's tree (``jax_params``). Real checkpoints come with ROADMAP
-A13.
+a JAX calculator's tree (``jax_params``). ``checkpoint_dir`` replaces the
+towers whose weights it holds (``clip/``, ``dino/``, ``lpips/``: see
+``convert.checkpoint.load_metric_modules``; a missing one keeps its random
+weights, as in the JAX calculator) and gives the CLIP BPE tokenizer when the
+directory holds its vocabulary files.
 """
 from __future__ import annotations
 
@@ -51,13 +54,10 @@ def _random_modules(clip_vision: vit.ViTConfig, clip_text: CLIPTextConfig,
 class MetricsCalculator:
     def __init__(self, seed: int = 0, checkpoint_dir: Optional[str] = None, tokenizer=None,
                  tiny: bool = False, device=None, jax_params: Optional[Dict[str, Any]] = None):
-        if checkpoint_dir is not None:
-            raise NotImplementedError("MetricsCalculator(checkpoint_dir=...): loading the "
-                                      "metric towers' checkpoints is ROADMAP A13, not ported yet")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_f32()
-        self.tokenizer = tokenizer or default_tokenizer()
+        self.tokenizer = tokenizer or default_tokenizer(checkpoint_dir)
         if tiny:
             self.clip_vision_cfg = vit.TINY_VIT
             self.clip_text_cfg = CLIPTextConfig(vocab_size=128, width=32, layers=2, heads=2)
@@ -74,6 +74,10 @@ class MetricsCalculator:
             modules = metric_modules_from_jax_params(jax_params, *cfgs)
         else:
             modules = _random_modules(*cfgs, self.clip_proj_dim, seed, self.device)
+        if checkpoint_dir is not None:
+            from pnpinversion_tpu_torch.convert.checkpoint import load_metric_modules
+
+            modules.update(load_metric_modules(checkpoint_dir, *cfgs, device=self.device))
         for m in modules.values():
             m.to(device=self.device, dtype=torch.float32).eval().requires_grad_(False)
         self.clip_vision, self.clip_text = modules["clip_vision"], modules["clip_text"]

@@ -12,8 +12,8 @@ better, scores are summed log-probs over the generated length, the search
 freezes once the pool is full and no live beam can beat its worst), or
 greedy decoding at num_beams 1. The decoder runs on the device in f32; the
 beam bookkeeping runs on the host in f32 numpy, in the JAX package's order
-of operations. Loading converted BLIP weights (``make_blip_captioner``)
-waits for the checkpoint loaders (ROADMAP A13); ``random_init`` draws
+of operations. ``make_blip_captioner`` loads a checkpoint directory's
+``blip/`` weights and ``blip_tokenizer/vocab.txt``; ``random_init`` draws
 weights from a seed.
 """
 from __future__ import annotations
@@ -289,3 +289,27 @@ class BlipCaptioner:
 
     def __call__(self, image_u8) -> str:
         return self.caption_batch(np.asarray(image_u8)[None])[0]
+
+
+def make_blip_captioner(checkpoint_dir: str, device=None,
+                        vision_cfg: ViTConfig = BLIP_VIT_B16_384,
+                        text_cfg: BlipTextConfig = BlipTextConfig()) -> BlipCaptioner:
+    """The captioner of a checkpoint directory: BLIP's vision tower and
+    decoder from ``<checkpoint_dir>/blip`` (lavis layout, loaded strictly:
+    ``convert.checkpoint.load_blip_modules``) and its WordPiece vocabulary
+    from ``<checkpoint_dir>/blip_tokenizer/vocab.txt``, in f32 on the device
+    (cuda unless given). Raises FileNotFoundError when either is missing."""
+    import os
+
+    from pnpinversion_tpu_torch.convert.checkpoint import blip_tokenizer_file, load_blip_modules
+    from pnpinversion_tpu_torch.utils.tokenizer import BertWordPieceTokenizer
+
+    device = resolve_device(device)
+    vocab = blip_tokenizer_file(checkpoint_dir)
+    if vocab is None or not os.path.isdir(os.path.join(checkpoint_dir, "blip")):
+        raise FileNotFoundError(f"no BLIP weights (blip/) or vocabulary "
+                                f"(blip_tokenizer/vocab.txt) under {checkpoint_dir}")
+    vision, decoder = load_blip_modules(os.path.join(checkpoint_dir, "blip"), vision_cfg,
+                                        text_cfg, device)
+    return BlipCaptioner(vision.eval().requires_grad_(False),
+                         decoder.eval().requires_grad_(False), BertWordPieceTokenizer(vocab))

@@ -60,16 +60,27 @@ class SDPipeline:
         device=None,
         dtype: Optional[torch.dtype] = None,
         jax_params: Optional[Dict[str, Any]] = None,
+        checkpoint_dir: Optional[str] = None,
     ) -> "SDPipeline":
         """Random-weight pipeline (the JAX package's init distributions, drawn
-        from ``seed`` on the device), or the weights of a JAX param tree with
-        numpy leaves when ``jax_params`` is given. On CUDA it turns TF32 off
-        for the process (full f32, see the module docstring)."""
+        from ``seed`` on the device); the weights of a JAX param tree with
+        numpy leaves when ``jax_params`` is given; or a local checkpoint's
+        when ``checkpoint_dir`` is (an HF pipeline directory or a CompVis
+        ``.ckpt``, loaded strictly and cast to ``dtype`` on the device:
+        ``convert.checkpoint.load_pipeline_modules``; its ``tokenizer/``
+        gives the CLIP BPE tokenizer unless ``tokenizer`` is passed). On
+        CUDA it turns TF32 off for the process (full f32, see the module
+        docstring)."""
         device = resolve_device(device)
         dtype = dtype or default_dtype(device)
         if device.type == "cuda":
             use_full_f32()
-        if jax_params is not None:
+        if checkpoint_dir is not None:
+            from pnpinversion_tpu_torch.convert.checkpoint import load_pipeline_modules
+
+            modules, tokenizer = load_pipeline_modules(checkpoint_dir, config, dtype, device,
+                                                       tokenizer)
+        elif jax_params is not None:
             modules = from_jax_params(jax_params, config)
         else:
             gen = torch.Generator(device=device).manual_seed(seed)

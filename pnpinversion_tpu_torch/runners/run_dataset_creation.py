@@ -13,9 +13,10 @@ written in the seeds.json layout that ``run_training_instructpix2pix``
 reads. Prompts that already have metadata.jsonl are skipped;
 ``--n_partitions``/``--partition`` split the prompts across invocations
 (then ``--prepare_only`` once at the end); ``--seed`` makes the candidates'
-seeds, thresholds and guidance reproducible. Random weights: loading
-checkpoints (``--checkpoint_dir``) is ROADMAP A13. Runs on ``cuda`` unless
-``--device cpu``.
+seeds, thresholds and guidance reproducible. Random weights, or a local
+checkpoint (``--checkpoint_dir``: the SD pipeline's HF directory, whose
+``clip/`` then gives the filter's CLIP towers; ``convert/checkpoint.py``).
+Runs on ``cuda`` unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -69,17 +70,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.prepare_only:
         print(json.dumps({"seeds_json": dc.prepare_dataset(args.out_dir)}), flush=True)
         return
-    if args.checkpoint_dir is not None:
-        raise NotImplementedError("--checkpoint_dir: loading checkpoints is ROADMAP A13, "
-                                  "not ported yet")
     from pnpinversion_tpu_torch.configs import SD14, SD21
     from pnpinversion_tpu_torch.pipeline import SDPipeline
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     pipe = SDPipeline.create(SD14 if args.model == "sd14" else SD21, device=args.device,
-                             dtype=dtype)
+                             dtype=dtype, checkpoint_dir=args.checkpoint_dir)
     generator = dc.PairGenerator(pipe, args.steps)
-    clip_filter = dc.PairClipFilter(tokenizer=pipe.tokenizer, device=pipe.device)
+    clip_filter = dc.PairClipFilter(checkpoint_dir=args.checkpoint_dir, device=pipe.device,
+                                    tokenizer=pipe.tokenizer if args.checkpoint_dir is None
+                                    else None)
     thresholds = dc.FilterThresholds(clip_threshold=args.clip_threshold,
                                      clip_dir_threshold=args.clip_dir_threshold,
                                      clip_img_threshold=args.clip_img_threshold)

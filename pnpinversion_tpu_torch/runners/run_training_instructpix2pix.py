@@ -8,8 +8,9 @@ the port's counterpart of ``runners/run_training_instructpix2pix.py``.
 Data: one or more ip2p seeds.json dataset directories (``--data_path``,
 repeatable, with ``--data_weight`` mixing them as InstructDiffusion does).
 The model: an IP2P pipeline (SD1.4 with the 8-channel UNet; a 4-channel
-UNet is zero-extended, the ip2p init) on random weights from ``--seed``
-(checkpoints, ``--checkpoint_dir``, are ROADMAP A13). bf16 compute over f32
+UNet is zero-extended, the ip2p init) on random weights from ``--seed``, or
+on a local checkpoint (``--checkpoint_dir``: an HF SD directory or a CompVis
+``.ckpt``, with a 4- or 8-channel UNet; ``convert/checkpoint.py``). bf16 compute over f32
 master weights, accumulation, EMA, ``torch.save`` checkpoints
 ``<output_dir>/step_<n:08d>.pt`` (``--resume`` continues from the latest),
 and a JSONL log ``<output_dir>/train_log.jsonl`` (loss, grad_norm, lr,
@@ -20,6 +21,7 @@ unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -38,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-dataset sample weight (InstructDiffusion-style)")
     p.add_argument("--output_dir", required=True)
     p.add_argument("--checkpoint_dir", default=None,
-                   help="a converted SD checkpoint: ROADMAP A13, raises for now")
+                   help="SD weights to start from: an HF pipeline dir (unet/ vae/ "
+                        "text_encoder/) or a CompVis .ckpt (dir); random weights without")
     p.add_argument("--resume", action="store_true",
                    help="restore the latest checkpoint in --output_dir")
     p.add_argument("--batch_per_step", type=int, default=32,
@@ -73,9 +76,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.checkpoint_dir is not None:
-        raise NotImplementedError("--checkpoint_dir: loading checkpoints is ROADMAP A13, "
-                                  "not ported yet")
     from pnpinversion_tpu_torch.configs import IP2P
     from pnpinversion_tpu_torch.pipeline import SDPipeline
     from pnpinversion_tpu_torch.training.data import EditPairDataset, WeightedConcat, batches
@@ -85,10 +85,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         extend_conv_in,
         step_generator,
     )
+    from pnpinversion_tpu_torch.utils.device import resolve_device
     from pnpinversion_tpu_torch.utils.observability import RunLogger
 
-    pipe = SDPipeline.create(IP2P, seed=args.seed, device=args.device)
-    model_cfg = pipe.config  # IP2P, or a miniature a test injects through create
+    resolve_device(args.device)  # no CUDA and no --device cpu: raise before reading weights
+    config = IP2P
+    if args.checkpoint_dir is not None:  # the UNet as the checkpoint has it, 4 or 8 channels
+        from pnpinversion_tpu_torch.convert.checkpoint import checkpoint_in_channels
+
+        config = dataclasses.replace(IP2P, unet=dataclasses.replace(
+            IP2P.unet, in_channels=checkpoint_in_channels(args.checkpoint_dir)))
+    pipe = SDPipeline.create(config, seed=args.seed, device=args.device,
+                             checkpoint_dir=args.checkpoint_dir)
+    # IP2P's 8 input channels, on the pipeline's config (a miniature a test
+    # injects through create, or the checkpoint's)
+    model_cfg = dataclasses.replace(pipe.config, unet=dataclasses.replace(
+        pipe.config.unet, in_channels=IP2P.unet.in_channels))
     unet = pipe.unet
     if unet.config.in_channels < model_cfg.unet.in_channels:
         unet = extend_conv_in(unet, model_cfg.unet.in_channels)

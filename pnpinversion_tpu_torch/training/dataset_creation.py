@@ -163,18 +163,17 @@ class PairClipFilter:
     image0-image1). The text tower's EOS token (the first, or the largest id
     when the tokenizer has none) through a bias-free projection. Random
     weights from ``seed``, or a JAX ``PairClipFilter``'s tree
-    (``jax_params``); checkpoints are ROADMAP A13. Runs on ``cuda`` unless
-    ``device`` says otherwise, in full f32 there."""
+    (``jax_params``), or the towers of ``<checkpoint_dir>/clip`` (a
+    transformers CLIPModel: ``convert.checkpoint.load_clip_modules``; the
+    tokenizer then the directory's CLIP BPE where it has the files). Runs on
+    ``cuda`` unless ``device`` says otherwise, in full f32 there."""
 
     def __init__(self, seed: int = 0, checkpoint_dir: Optional[str] = None, tokenizer=None,
                  tiny: bool = False, device=None, jax_params: Optional[Dict[str, Any]] = None):
-        if checkpoint_dir is not None:
-            raise NotImplementedError("PairClipFilter(checkpoint_dir=...): loading the CLIP "
-                                      "towers' checkpoints is ROADMAP A13, not ported yet")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_f32()
-        self.tokenizer = tokenizer or default_tokenizer()
+        self.tokenizer = tokenizer or default_tokenizer(checkpoint_dir)
         if tiny:
             self.vision_cfg = vit.TINY_VIT
             self.text_cfg = CLIPTextConfig(vocab_size=128, width=32, layers=2, heads=2)
@@ -187,6 +186,11 @@ class PairClipFilter:
             m = clip_modules_from_jax_params(jax_params, self.vision_cfg, self.text_cfg)
         else:
             m = self._random_modules(seed)
+        clip_dir = None if checkpoint_dir is None else os.path.join(checkpoint_dir, "clip")
+        if clip_dir is not None and os.path.isdir(clip_dir):
+            from pnpinversion_tpu_torch.convert.checkpoint import load_clip_modules
+
+            m.update(load_clip_modules(clip_dir, self.vision_cfg, self.text_cfg, self.device))
         for module in m.values():
             module.to(device=self.device, dtype=torch.float32).eval().requires_grad_(False)
         self.clip_vision, self.clip_text, self.clip_text_proj = (

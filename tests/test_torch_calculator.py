@@ -11,6 +11,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from pnpinversion_tpu.data.pie_bench import mask_encode
@@ -81,9 +82,16 @@ def test_every_metric_matches_jax_and_goldens(calcs):
         assert abs(tcalc.clip_cosine(img, txt) - goldens[name]) <= CLIP_ATOL, name
 
 
-def test_checkpoint_dir_names_roadmap_a13():
-    with pytest.raises(NotImplementedError, match="A13"):
-        MetricsCalculator(tiny=True, device="cpu", checkpoint_dir="weights")
+def test_checkpoint_dir_names_roadmap_a13(tmp_path):
+    """``checkpoint_dir`` (ROADMAP A13, now ported) replaces the towers it
+    holds: none here, so the random ones stay, as in the JAX calculator; an
+    lpips/ without weights raises."""
+    random = MetricsCalculator(tiny=True, device="cpu")
+    kept = MetricsCalculator(tiny=True, device="cpu", checkpoint_dir=str(tmp_path))
+    assert torch.equal(kept.dino.pos_embed, random.dino.pos_embed)
+    (tmp_path / "lpips").mkdir()
+    with pytest.raises(FileNotFoundError, match="no weight files"):
+        MetricsCalculator(tiny=True, device="cpu", checkpoint_dir=str(tmp_path))
 
 
 def _write_run(root):

@@ -134,9 +134,16 @@ def test_clip_filter_scores_match_jax(sides):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-5 * np.abs(want[key]).max())
 
 
-def test_clip_filter_entry_points():
-    with pytest.raises(NotImplementedError, match="A13"):
-        dc.PairClipFilter(tiny=True, device="cpu", checkpoint_dir="ckpt")
+def test_clip_filter_entry_points(tmp_path):
+    """A checkpoint dir without clip/ keeps the random towers (the JAX
+    filter's rule); a clip/ without weights raises; no CUDA and no device
+    raises."""
+    random = dc.PairClipFilter(tiny=True, device="cpu")
+    kept = dc.PairClipFilter(tiny=True, device="cpu", checkpoint_dir=str(tmp_path))
+    assert torch.equal(kept.clip_vision.pos_embed, random.clip_vision.pos_embed)
+    (tmp_path / "clip").mkdir()
+    with pytest.raises(FileNotFoundError, match="no weight files"):
+        dc.PairClipFilter(tiny=True, device="cpu", checkpoint_dir=str(tmp_path))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             dc.PairClipFilter(tiny=True)

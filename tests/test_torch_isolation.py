@@ -1,6 +1,8 @@
-"""The PyTorch port imports neither JAX nor anything of the JAX package:
-every module of ``pnpinversion_tpu_torch`` (and ``chip_smoke.py``) imports
-in a fresh interpreter where both are blocked."""
+"""The PyTorch port imports neither JAX nor anything of the JAX package, nor
+the weight-file packages the GPU host lacks (``safetensors``,
+``transformers``, ``diffusers``, ``orbax``): every module of
+``pnpinversion_tpu_torch`` (and ``chip_smoke.py``) imports in a fresh
+interpreter where all of them are blocked."""
 import os
 import subprocess
 import sys
@@ -9,7 +11,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "pnpinversion_tpu"):
+BLOCKED = ("jax", "jaxlib", "pnpinversion_tpu", "safetensors", "transformers", "diffusers",
+           "orbax")
+for name in BLOCKED:
     sys.modules[name] = None  # any import of them now raises ImportError
 import pnpinversion_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pnpinversion_tpu_torch.__path__,
@@ -18,9 +22,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m, v in sys.modules.items()
-                if v is not None and (m.split(".")[0] in ("jax", "jaxlib")
-                                      or m == "pnpinversion_tpu"
-                                      or m.startswith("pnpinversion_tpu.")))
+                if v is not None and m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(" ".join(names))
 """
@@ -32,7 +34,7 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 70  # every module was reached, the batched editors' among them
+    assert len(names) >= 92  # every module was reached, the entry points' among them
     assert {"pnpinversion_tpu_torch.parallel.sweep", "pnpinversion_tpu_torch.editors.p2p_editor",
             "pnpinversion_tpu_torch.inversion.ddim_inversion",
             "pnpinversion_tpu_torch.sampling.p2p_forward",
@@ -62,4 +64,7 @@ def test_port_imports_without_jax():
             "pnpinversion_tpu_torch.training.dataset_creation",
             "pnpinversion_tpu_torch.runners.run_prompt_dataset",
             "pnpinversion_tpu_torch.runners.run_dataset_creation",
-            "pnpinversion_tpu_torch.runners.run_training_instructpix2pix"} <= names
+            "pnpinversion_tpu_torch.runners.run_training_instructpix2pix",
+            "pnpinversion_tpu_torch.convert.checkpoint", "pnpinversion_tpu_torch.cli",
+            "pnpinversion_tpu_torch.runners.run_editing_p2p",
+            "pnpinversion_tpu_torch.runners.run_sweep"} <= names

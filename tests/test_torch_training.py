@@ -261,16 +261,17 @@ def test_training_cli_end_to_end(tmp_path, monkeypatch):
 
 def test_training_entry_points_refuse_what_they_cannot_do(tmp_path):
     """No CUDA and no ``--device cpu``: the runner raises (no quiet CPU
-    run); ``--checkpoint_dir`` names ROADMAP A13; the multi-device flags of
-    the JAX runner (A12) are not accepted."""
+    run); ``--checkpoint_dir`` is read strictly (a directory without weights
+    raises); the multi-device flags of the JAX runner (A12) are not
+    accepted."""
     from pnpinversion_tpu_torch.runners import run_training_instructpix2pix as runner
 
     argv = _cli_argv(str(tmp_path / "ds"), str(tmp_path / "run"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             runner.main(argv)
-    with pytest.raises(NotImplementedError, match="A13"):
-        runner.main(argv + ["--checkpoint_dir", "ckpt"])
+    with pytest.raises(FileNotFoundError, match="no pipeline weights"):
+        runner.main(argv + ["--device", "cpu", "--checkpoint_dir", str(tmp_path / "none")])
     for flag in ("--tp", "--n_devices", "--num_processes"):
         with pytest.raises(SystemExit):
             runner.main(argv + [flag, "2"])
