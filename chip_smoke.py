@@ -92,13 +92,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bit for bit, load seconds and GB/s, strips equal to ``P2PEditor``'s, a
    rerun that skips) and ``runners.run_sweep`` (bf16, x4: strips equal to
    ``BatchedDirectInversionP2P``'s), launches counted, and a TINY 8-channel
-   CompVis ``.ckpt`` loaded bit for bit; every shape that these paths
-   launched a kernel at, in either dtype, must be one that phase 3 held
-   against the plain version;
+   CompVis ``.ckpt`` loaded bit for bit; then, on the same SD1.4 directory,
+   several processes (``multi_process_phase``): two ranks on the one card,
+   joined by gloo, run ``runners.run_sweep_sharded`` over an 8-image mini
+   PIE-Bench (x4 a rank, bf16; every strip written once, each rank's strips
+   byte for byte those of a one-process run over its slice, one of which is
+   a group of one on NCCL; the totals reduced; a rerun that edits nothing),
+   the training runner with ZeRO (2 steps of a global batch of 16 x 2 at
+   256^2, 8 rows a rank; against one process on the same 32 rows a step as
+   batch 8 x 4, loss, grad norm and state; the ranks' checkpoint resumed at
+   one process) and one step without ZeRO, each rank's launches counted and
+   its peak memory both ways; every shape that these paths launched a
+   kernel at, in either dtype, must be one that phase 3 held against the
+   plain version;
 9. the PIE-Bench evaluator at full width (CLIP ViT-L/14, DINO ViT-B/8,
    SqueezeNet LPIPS, random weights, f32) over the batched path's strips,
    written in the runners' layout with a synthetic mapping file: the CSV's
    checks, and the first row against the same calculator on the host CPU;
+   then ``evaluate(sharded=True)`` with the four items in one batch (one
+   forward of each metric model over the batch), its CSV within 1e-3 of the
+   serial one, seconds per image both ways;
 10. print one JSON line of kernel numbers (launches of each kernel on every
    path), the script's total seconds, then the result line.
 
@@ -2457,6 +2470,8 @@ def eval_phase(batch_out: dict, calc=None) -> dict:
             delattr(calc, f"calculate_{name}")  # the class's own methods again
         with open(result) as f:
             rows = list(csv.reader(f))
+        sharded = _sharded_eval(calc, mapping_path, src_folder, folders, rows, t_eval,
+                                os.path.join(root, "sharded.csv"))
         with open(mapping_path) as f:
             mapping = json.load(f)
         head = ["file_id"] + [f"{EVAL_METHOD}|{m}" for m in ev.DEFAULT_METRICS]
@@ -2501,7 +2516,45 @@ def eval_phase(batch_out: dict, calc=None) -> dict:
             "s_per_family": {k: sum(v) for k, v in family_s.items()},
             "calls_per_family": {k: len(v) for k, v in family_s.items()},
             "peak_mem_gib": peak, "rel_diff_card_vs_cpu_first_row": worst,
-            "first_row_card_cpu": values, "cpu_row_s": t_host}
+            "first_row_card_cpu": values, "cpu_row_s": t_host, "sharded": sharded}
+
+
+def _sharded_eval(calc, mapping_path: str, src_folder: str, folders: dict, rows: list,
+                  t_serial: float, result: str) -> dict:
+    """``evaluate(sharded=True)`` over the same strips, all the items in one
+    batch (``ShardedEvaluator``: one forward of each metric model over the
+    batch): its CSV against the serial one (``rows``), every cell within
+    EVAL_CPU_RTOL and "nan" in the same places; seconds per evaluated image
+    both ways (the batched one after a first call, which builds nothing but
+    warms the allocator)."""
+    import csv
+
+    from pnpinversion_tpu_torch.evaluation import evaluate as ev
+
+    n = len(rows) - 1
+    cats = [str(i) for i in range(10)]
+    run = lambda: ev.evaluate(mapping_path, ev.DEFAULT_METRICS, src_folder, folders, result,
+                              cats, calc, sharded=True, batch_size=n)
+    _, t_first = _sync_time(run)
+    torch.cuda.reset_peak_memory_stats()
+    _, t = _sync_time(run)
+    with open(result) as f:
+        got = list(csv.reader(f))
+    worst = 0.0
+    if got[0] != rows[0] or [r[0] for r in got] != [r[0] for r in rows]:
+        raise AssertionError(f"the batched CSV's header or ids differ: {got[0]}")
+    for g_row, s_row in zip(got[1:], rows[1:]):
+        for g, w in zip(g_row[1:], s_row[1:]):
+            if (g == "nan") != (w == "nan"):
+                raise AssertionError(f"batched {g_row} against serial {s_row}")
+            if w != "nan":
+                worst = max(worst, abs(float(g) - float(w)) / max(abs(float(w)), 1e-6))
+    if worst > EVAL_CPU_RTOL:
+        raise AssertionError(f"the batched evaluator is {worst} from the serial one (limit "
+                             f"{EVAL_CPU_RTOL})")
+    return {"batch": n, "s_per_image": t / n, "first_call_s_per_image": t_first / n,
+            "serial_s_per_image": t_serial / n, "max_rel_diff_vs_serial": worst,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 # ---------------------------------------------------------------------------
@@ -2927,8 +2980,9 @@ def _write_hf_checkpoint(root: str, modules: dict) -> int:
 
 def _mini_pie_bench(root: str, n: int, size: int) -> str:
     """A PIE-Bench ``data/`` of n seeded JPEG images with the cake prompts
-    (one pair each), LocalBlend on "cake", the first ENTRY_RUNNER_IMAGES in
-    category 0 and the rest in 1. Returns the data dir."""
+    (one pair each, in turn), LocalBlend on "cake", the first
+    ENTRY_RUNNER_IMAGES in category 0 and the rest in 1. Returns the data
+    dir."""
     from PIL import Image
 
     from pnpinversion_tpu_torch.data.pie_bench import mask_encode
@@ -2941,7 +2995,7 @@ def _mini_pie_bench(root: str, n: int, size: int) -> str:
         path = os.path.join(data, "annotation_images", rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         Image.fromarray(image()).save(path)
-        src, tar = CAKE_PROMPTS[i]
+        src, tar = CAKE_PROMPTS[i % len(CAKE_PROMPTS)]
         mask = np.zeros((512, 512), np.uint8)
         mask[128:384, 96:352] = 1
         mapping[f"{i:09d}"] = {
@@ -3006,7 +3060,8 @@ def _same_modules(pipe, seeded: dict) -> int:
     return n
 
 
-def entry_points_phase(config=None, steps: int = ENTRY_STEPS, device: str = "cuda") -> dict:
+def entry_points_phase(config=None, steps: int = ENTRY_STEPS, device: str = "cuda",
+                       keep: bool = False) -> dict:
     """The port's own entry points on local weights, at full SD1.4 width:
 
     - an HF SD1.4 directory written with the port's safetensors writer (seeded
@@ -3029,7 +3084,8 @@ def entry_points_phase(config=None, steps: int = ENTRY_STEPS, device: str = "cud
       port's writer; TINY keeps the phase's budget), loaded bit for bit.
 
     ``config`` (SD14 by default) and ``device`` let a CPU rehearsal run it
-    at TINY."""
+    at TINY. ``keep`` leaves ``ENTRY_DIR`` for ``multi_process_phase`` (the
+    caller removes it)."""
     import shutil
 
     from pnpinversion_tpu_torch import configs
@@ -3174,7 +3230,8 @@ def entry_points_phase(config=None, steps: int = ENTRY_STEPS, device: str = "cud
         out["ldm_tiny_ip2p"] = {"tensors_bit_for_bit": _same_modules(loaded, mods),
                                 "conv_in": list(loaded.unet.conv_in.weight.shape)}
     finally:
-        shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(ENTRY_DIR, ignore_errors=True)
     print("entry_points", json.dumps(out), flush=True)
     return out
 
@@ -3183,6 +3240,515 @@ def _check_strip_size(strip, size: int) -> None:
     if strip.shape != (size, 4 * size, 3) or strip.dtype != np.uint8:
         raise AssertionError(f"strip {strip.shape} {strip.dtype}, want ({size}, {4 * size}, 3) "
                              "uint8")
+
+
+# ---------------------------------------------------------------------------
+# several processes: the sharded sweep, data-parallel training with ZeRO
+# ---------------------------------------------------------------------------
+
+MP_DIR = "build/smoke_multi"  # git-ignored; removed when the phase ends
+MP_RANKS = 2  # processes on the one card (gloo: NCCL refuses two ranks on one GPU)
+MP_IMAGES = 8  # a x4 batch a rank, the shape run_sweep launches at (B.H 96)
+# the global batch and accumulation of the two ranks: 8 rows a rank, the
+# shape of train_b8_32x32 (B.H 64 at 1,024 tokens); the one-process
+# reference runs the same 32 rows of a step as batch 8 x accumulation 4
+MP_BATCH, MP_ACCUM, MP_REF_ACCUM, MP_STEPS = 16, 2, 4, 2
+MP_SEED, MP_LR = 5, 1e-4  # the runner's --seed, and --base_lr without the scaling
+MP_PAIRS = 20  # seeds.json items of the training data (18 in the train split)
+MP_LOSS_RTOL = 1e-5  # the first step's loss: the same 8-row forwards, summed in another order
+# two runs' updates of the parameters, in units of the lr: from a fresh
+# state Adam moves each coordinate by about +-lr whatever its gradient's
+# size, so a coordinate whose gradient is rounding noise (a norm cancels it,
+# or the bf16 backward's reduce-adds and cuDNN's algorithms vary its sum
+# from run to run) moves either way in either run, up to ~2 lr a step
+# apart. So the ranks' update is held to the one process's run-to-run
+# difference (the same steps again), each statistic within this factor of
+# it plus a floor; a fault in a block of a tensor moves most of that block
+# and its median with it
+MP_NOISE_FACTOR = 2.0
+MP_NOISE_FLOOR = {"median_max_in_lr": 1e-3, "share_over_0.1_lr": 1e-4, "l2_rel": 1e-3}
+MP_TIMEOUT_S = 600.0  # the ranks' deadline: past it they are ended and the phase fails
+
+
+def _pair_dataset(root: str, n: int, res: int) -> str:
+    """An ip2p seeds.json dataset of n seeded random JPEG pairs at res^2."""
+    from PIL import Image
+
+    rng = np.random.default_rng(MP_SEED)
+    seeds = []
+    for i in range(n):
+        name = f"{i:07d}"
+        os.makedirs(os.path.join(root, name))
+        with open(os.path.join(root, name, "prompt.json"), "w") as f:
+            json.dump({"input": SRC, "edit": f"make the cake {i}", "output": TAR}, f)
+        for suffix in ("0", "1"):
+            Image.fromarray(rng.integers(0, 255, (res, res, 3), dtype=np.uint8)).save(
+                os.path.join(root, name, f"0_{suffix}.jpg"))
+        seeds.append([name, [0]])
+    with open(os.path.join(root, "seeds.json"), "w") as f:
+        json.dump(seeds, f)
+    return root
+
+
+def _mp_sweep_argv(spec: dict, out: str, log: str) -> list:
+    return ["--method", "directinversion+p2p", "--data_path", spec["data"], "--output_path", out,
+            "--checkpoint_dir", spec["ckpt"], "--num_ddim_steps", str(spec["steps"]),
+            "--edit_category_list", "0", "1", "--run_log", log, "--device", spec["device"]]
+
+
+def _mp_train_argv(spec: dict) -> list:
+    return ["--data_path", spec["pairs"], "--output_dir", spec["train_out"],
+            "--checkpoint_dir", spec["ckpt"], "--batch_per_step", str(MP_BATCH),
+            "--accumulate_grad_batches", str(MP_ACCUM), "--max_steps", str(MP_STEPS),
+            "--save_every", "0", "--log_every", "1", "--no_scale_lr", "--base_lr", str(MP_LR),
+            "--crop_res", str(TRAIN_CROP), "--min_resize_res", str(TRAIN_CROP),
+            "--max_resize_res", str(TRAIN_CROP), "--seed", str(MP_SEED), "--device",
+            spec["device"]]
+
+
+def _mp_trainer(spec: dict, zero: bool, accum: int, group, pipe=None):
+    """The training runner's trainer on the smoke's SD1.4 directory (its
+    4-channel UNet widened to 8), with the runner's settings, on ``pipe``
+    (a bf16 pipeline of that directory; loaded when not given, as the
+    runner loads it); returns (trainer, pipeline)."""
+    from pnpinversion_tpu_torch.configs import IP2P
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    if pipe is None:
+        cfg4 = dataclasses.replace(IP2P, unet=dataclasses.replace(IP2P.unet, in_channels=4))
+        pipe = SDPipeline.create(cfg4, seed=MP_SEED, checkpoint_dir=spec["ckpt"],
+                                 device=spec["device"])
+    unet8 = tr.extend_conv_in(pipe.unet, IP2P.unet.in_channels)
+    pipe.unet = None
+    model_cfg = dataclasses.replace(pipe.config, unet=dataclasses.replace(
+        pipe.config.unet, in_channels=IP2P.unet.in_channels))
+    cfg = tr.TrainConfig(base_lr=MP_LR, scale_lr=False, accum=accum, zero=zero)
+    trainer = tr.EditTrainer(model_cfg, {"vae": pipe.vae, "text": pipe.text_encoder}, unet8, cfg,
+                             MP_BATCH if group is not None else MP_BATCH // MP_RANKS,
+                             pipe.tokenize([""])[0], group=group)
+    return trainer, pipe
+
+
+def _mp_streams(spec: dict, pipe) -> list:
+    """The ranks' data streams as the training runner reads them: each rank
+    its own, MP_BATCH / MP_RANKS items a microbatch; a function of (rank,
+    microbatches) -> {edited, cond_image, ids}."""
+    from pnpinversion_tpu_torch.training.data import EditPairDataset, WeightedConcat, batches
+
+    src = WeightedConcat([EditPairDataset(spec["pairs"], split="train",
+                                          min_resize_res=TRAIN_CROP, max_resize_res=TRAIN_CROP,
+                                          crop_res=TRAIN_CROP, flip_prob=0.5)], None)
+    streams = [batches(src, MP_BATCH // MP_RANKS, seed=MP_SEED, process_index=r)
+               for r in range(MP_RANKS)]
+
+    def take(rank: int, n: int) -> dict:
+        parts = [next(streams[rank]) for _ in range(n)]
+        return {"edited": np.stack([p["edited"] for p in parts]),
+                "cond_image": np.stack([p["cond_image"] for p in parts]),
+                "ids": torch.stack([pipe.tokenize(p["edit"]) for p in parts])}
+
+    return take
+
+
+def _mp_rank(rank: int, address: str, spec: dict) -> None:
+    """One of the MP_RANKS processes on the card (spawned): joins the gloo
+    group, then runs ``run_sweep_sharded`` (counted), the same again (every
+    strip exists: nothing edited, no pipeline built), one step of the trainer
+    without ZeRO on the sweep's pipeline (the same SD1.4 weights the
+    training runner loads) and the training runner with ZeRO (counted), each
+    through the group it made, each with its peak memory; writes its numbers
+    to MP_DIR/rank<r>.json."""
+    import torch.distributed as dist
+
+    from pnpinversion_tpu_torch.parallel import multihost
+    from pnpinversion_tpu_torch.runners import run_sweep_sharded
+    from pnpinversion_tpu_torch.runners import run_training_instructpix2pix as train_runner
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // MP_RANKS))  # the host's cores, shared
+    _record_path_shapes()
+    multihost.initialize(address, MP_RANKS, rank, "gloo", spec["device"])
+    if spec["device"] == "cuda":  # the context, cuDNN and cuBLAS, while the parent works
+        x = torch.randn(1, 8, 16, 16, device="cuda", dtype=torch.bfloat16)
+        torch.nn.functional.conv2d(x, torch.randn(8, 8, 3, 3, device=x.device, dtype=x.dtype))
+        (x.flatten(1) @ x.flatten(1).T).sum().item()
+    deadline = time.perf_counter() + MP_TIMEOUT_S
+    while not os.path.exists(spec["ready"]):  # the parent writes the data, then this file
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"rank {rank}: no {spec['ready']} within {MP_TIMEOUT_S} s")
+        time.sleep(0.2)
+    flags = ["--num_processes", str(MP_RANKS), "--process_id", str(rank),
+             "--coordinator_address", address, "--dist_backend", "gloo"]
+    out = {}
+    try:
+        sweep_argv = _mp_sweep_argv(spec, spec["sweep_out"], spec["sweep_log"]) + flags
+        _reset_counts()
+        with _CreateSpy() as spy:
+            done, t = _sync_time(lambda: run_sweep_sharded.main(sweep_argv))
+        out["sweep"] = {"done": done, "run_s": t, "load_s": spy.seconds, "launches": _counts()}
+        pipe = spy.pipes[0]
+        del spy
+        _reset_counts()
+        with _CreateSpy() as spy:
+            again, t = _sync_time(lambda: run_sweep_sharded.main(sweep_argv))
+        out["rerun"] = {"done": again, "run_s": t, "pipelines": len(spy.pipes),
+                        "launches": _counts()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, pipe = _mp_trainer(spec, False, MP_ACCUM, dist.group.WORLD, pipe)
+        batch = _mp_streams(spec, pipe)(rank, MP_ACCUM)
+        m, t = _sync_time(lambda: trainer.train_step(batch, tr.step_generator(
+            MP_SEED, 0, trainer.device)))
+        out["no_zero_step"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                               "step_s": t, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del trainer, pipe, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        _, t = _sync_time(lambda: train_runner.main(_mp_train_argv(spec) + flags))
+        out["train"] = {"run_s": t, "launches": _counts(),
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    finally:
+        multihost.shutdown()
+    out["path_shapes"] = {k: sorted(v) for k, v in PATH_SHAPES.items()}
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mp_start(steps: int = ENTRY_STEPS, device: str = "cuda"):
+    """Starts the MP_RANKS ranks of ``multi_process_phase`` (spawned
+    ``_mp_rank``s): each joins the gloo group and warms its CUDA context,
+    then waits for the phase to write its data. Returns the phase's spec and
+    the processes; ``mp_stop`` ends them."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from pnpinversion_tpu_torch.parallel import multihost
+
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    os.makedirs(MP_DIR)
+    spec = {"dir": MP_DIR, "ckpt": os.path.join(ENTRY_DIR, "sd14"), "steps": steps,
+            "device": device, "data": os.path.join(MP_DIR, "data"),
+            "pairs": os.path.join(MP_DIR, "pairs"), "ready": os.path.join(MP_DIR, "ready"),
+            "sweep_out": os.path.join(MP_DIR, "sweep"),
+            "sweep_log": os.path.join(MP_DIR, "sweep_log.jsonl"),
+            "train_out": os.path.join(MP_DIR, "train")}
+    ctx = mp.start_processes(_mp_rank, args=(f"127.0.0.1:{multihost.free_port()}", spec),
+                             nprocs=MP_RANKS, join=False, start_method="spawn")
+    return spec, ctx
+
+
+def mp_stop(started) -> None:
+    """Ends the ranks that are still running and removes MP_DIR."""
+    import shutil
+
+    for p in started[1].processes:
+        if p.is_alive():
+            p.terminate()
+        p.join()
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+
+
+def _mp_run(started, beside):
+    """Lets the ranks go (the ready file) and runs the parent's ``beside()``
+    meanwhile; returns (the ranks' results, beside's). A rank that fails, or
+    the MP_TIMEOUT_S deadline, raises."""
+    spec, ctx = started
+    with open(spec["ready"], "w"):
+        pass
+    deadline = time.perf_counter() + MP_TIMEOUT_S
+    result = beside()
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"the {MP_RANKS} ranks outlasted {MP_TIMEOUT_S} s")
+    results = []
+    for r in range(MP_RANKS):
+        with open(os.path.join(spec["dir"], f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, result
+
+
+def _mp_slices(spec: dict, steps: int) -> dict:
+    """One-process runs over each rank's slice of the mini PIE-Bench (in
+    the parent, while the ranks run): rank 0's through ``run_sweep``, rank
+    1's through ``run_sweep_sharded`` as a group of one on NCCL (NCCL's
+    initialisation and the count's collective on the card), each one x4
+    batch of the bf16 forward's launches."""
+    import torch.distributed as dist
+
+    from pnpinversion_tpu_torch.data.pie_bench import PieBenchDataset
+    from pnpinversion_tpu_torch.runners import run_sweep, run_sweep_sharded
+
+    items = list(PieBenchDataset(spec["data"]).items())
+    mapping = json.load(open(os.path.join(spec["data"], "mapping_file.json")))
+    want_counts = {"fwd": FLASH_SITES * 2 * steps, "prep": 0, "main": 0, "convert": 0}
+    out = {}
+    for r in range(MP_RANKS):
+        path = os.path.join(spec["dir"], f"slice{r}.json")
+        with open(path, "w") as f:
+            json.dump({it.key: mapping[it.key] for it in items[r::MP_RANKS]}, f)
+        ref = os.path.join(spec["dir"], f"slice{r}")
+        argv = _mp_sweep_argv(spec, ref, os.path.join(spec["dir"], f"slice{r}.jsonl")) + [
+            "--mapping_file", path]
+        _reset_counts()
+        if r == 0:
+            done, t = _sync_time(lambda: run_sweep.main(argv))
+        else:
+            done, t = _sync_time(lambda: run_sweep_sharded.main(
+                argv + ["--num_processes", "1", "--dist_backend",
+                        "nccl" if spec["device"] == "cuda" else "gloo"]))
+        if (done["images"] != len(items[r::MP_RANKS]) or done["batch"] != BATCH
+                or _counts() != want_counts):
+            raise AssertionError(f"slice {r}: {done}, launches {_counts()}")
+        out[r] = {"entry": "run_sweep" if r == 0 else "run_sweep_sharded, nccl, 1 rank",
+                  "run_s": t, "images": done["images"], "dir": ref}
+    if dist.is_initialized():
+        raise AssertionError("the NCCL group of one outlived its run")
+    return out
+
+
+def _mp_check_sweep(spec: dict, ranks: list, steps: int, slices: dict) -> dict:
+    """The sharded sweep's checks: every strip written once, each rank's
+    4-image batch (one batch of the bf16 forward's launches), the totals
+    reduced to MP_IMAGES on both ranks, the rerun editing nothing and
+    building no pipeline, and each rank's strips byte for byte those of the
+    one-process run over its slice (``_mp_slices``)."""
+    from pnpinversion_tpu_torch.data.pie_bench import PieBenchDataset
+
+    per_rank = MP_IMAGES // MP_RANKS
+    want_counts = {"fwd": FLASH_SITES * 2 * steps, "prep": 0, "main": 0, "convert": 0}
+    for r, res in enumerate(ranks):
+        done, again = res["sweep"]["done"], res["rerun"]["done"]
+        if (done != {"images": per_rank, "images_total": MP_IMAGES, "batch": BATCH, "rank": r,
+                     "world": MP_RANKS} or res["sweep"]["launches"] != want_counts):
+            raise AssertionError(f"rank {r}'s sweep: {res['sweep']}, want {per_rank} images at "
+                                 f"batch {BATCH}, {MP_IMAGES} in all, launches {want_counts}")
+        if (again["images"], again["images_total"], res["rerun"]["pipelines"]) != (0, 0, 0) or any(
+                res["rerun"]["launches"].values()):
+            raise AssertionError(f"rank {r}'s rerun edited: {res['rerun']}")
+    events = [json.loads(line) for line in open(spec["sweep_log"])]
+    written = sorted(e["key"] for e in events if e["event"] == "image_done")
+    if written != sorted(f"{i:09d}" for i in range(MP_IMAGES)):
+        raise AssertionError(f"strips written: {written}, want each of {MP_IMAGES} once")
+    totals = sorted((e["process_index"], e["images_total"]) for e in events
+                    if e["event"] == "sweep_done")
+    if totals != [(0, 0), (0, MP_IMAGES), (1, 0), (1, MP_IMAGES)]:
+        raise AssertionError(f"sweep_done events {totals}")
+    folder = os.path.join("directinversion+p2p", "annotation_images")
+    items = list(PieBenchDataset(spec["data"]).items())
+    for r in range(MP_RANKS):
+        for it in items[r::MP_RANKS]:
+            rel = os.path.relpath(it.image_path, os.path.join(spec["data"], "annotation_images"))
+            with open(os.path.join(spec["sweep_out"], folder, rel), "rb") as f:
+                got = f.read()
+            with open(os.path.join(slices[r]["dir"], folder, rel), "rb") as f:
+                if f.read() != got:
+                    raise AssertionError(f"rank {r}'s strip {rel} is not the one-process run's")
+    return {"slices": {r: {k: v for k, v in row.items() if k != "dir"}
+                       for r, row in slices.items()}, "strips_equal_one_process": True}
+
+
+def _update_diff(before: list, after: list, other_before: list, other_after: list,
+                 names: list, lr: float, device) -> dict:
+    """Two runs' updates of every parameter tensor, (after - before), compared
+    in units of the lr: per tensor the median and the max of |difference|;
+    over all of them the worst median, the worst max (and its tensor), the
+    share of elements apart by more than 0.1 lr, and the difference's L2
+    norm over the update's."""
+    medians, maxes, over, n, d2, u2 = {}, {}, 0, 0, 0.0, 0.0
+    for name, b, a, ob, oa in zip(names, before, after, other_before, other_after):
+        u = (a.to(device) - b.to(device)).float()
+        d = ((oa.to(device) - ob.to(device)).float() - u).abs() / lr
+        medians[name], maxes[name] = d.median().item(), d.max().item()
+        over += int((d > 0.1).sum())
+        n += d.numel()
+        d2 += float((d * lr).double().pow(2).sum())
+        u2 += float(u.double().pow(2).sum())
+    worst = max(maxes, key=maxes.get)
+    return {"median_max_in_lr": max(medians.values()), "max_in_lr": maxes[worst],
+            "max_tensor": worst, "share_over_0.1_lr": over / n,
+            "l2_rel": (d2 / max(u2, 1e-30)) ** 0.5,
+            "top_tensors_max_in_lr": {k: maxes[k] for k in sorted(maxes, key=maxes.get)[-5:]}}
+
+
+def _mp_reference(spec: dict) -> dict:
+    """The one-process reference of the ranks' training (in the parent,
+    while the ranks run): the runner's trainer at batch 8 x accumulation 4
+    on the ranks' rows of MP_STEPS steps (microbatch by microbatch, rank by
+    rank, with their rows of the global draws), counted; then the same steps
+    again from the same start (its run-to-run noise). Returns the trainer,
+    its pipeline and data streams, the start and the first run's parameters
+    (on the host), the first run's metrics and launches."""
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the card is shared with the ranks: hold only what is used
+    ref, pipe = _mp_trainer(spec, True, MP_REF_ACCUM, None)
+    take = _mp_streams(spec, pipe)
+    start = [p.detach().to("cpu", copy=True) for p in ref.params]
+    steps, b = [], MP_BATCH // MP_RANKS
+    for step in range(MP_STEPS):
+        per_rank = [take(r, MP_ACCUM) for r in range(MP_RANKS)]
+        gen = tr.step_generator(MP_SEED, step, ref.device)
+        batch, draws = {k: [] for k in per_rank[0]}, []
+        for i in range(MP_ACCUM):  # microbatch i of every rank, in rank order
+            d = ref.draw(MP_BATCH, TRAIN_CROP, gen)
+            for r in range(MP_RANKS):
+                for k in batch:
+                    batch[k].append(per_rank[r][k][i])
+                draws.append({k: v[r * b: (r + 1) * b] for k, v in d.items()})
+        steps.append(({k: (torch.stack(v) if k == "ids" else np.stack(v))
+                       for k, v in batch.items()}, draws))
+    out = {"ref": ref, "pipe": pipe, "take": take, "start": start, "metrics": []}
+    for run in range(2):  # the steps, then the same steps again from the same start
+        with torch.no_grad():
+            for p, e, p0 in zip(ref.params, ref.ema_params, start):
+                p.copy_(p0)
+                e.copy_(p0)
+            for m_ in ref.mu + ref.nu:
+                m_.zero_()
+        ref.count = ref.step = 0
+        _reset_counts()
+        for batch, draws in steps:
+            m, t = _sync_time(lambda: ref.train_step(batch, draws=draws))
+            if run == 0:
+                out["metrics"].append(({k: float(v) for k, v in m.items()}, t))
+        _check_train_launches("the one-process reference", _counts(),
+                              MP_STEPS * MP_REF_ACCUM // TRAIN_ACCUM, remat=False)
+        if run == 0:
+            out["launches"] = _counts()
+            out["run0"] = [p.detach().to("cpu", copy=True) for p in ref.params]
+    return out
+
+
+def _mp_check_training(spec: dict, ranks: list, reference: dict) -> dict:
+    """The two ranks' training against the one-process reference
+    (``_mp_reference``) on the same 32 rows a step: the losses (the first
+    step's within MP_LOSS_RTOL, the second's within TRAIN_GNORM_RTOL) and the
+    grad norms within TRAIN_GNORM_RTOL; then the steps' update of every
+    parameter tensor (``_update_diff``) in the ranks' checkpoint against the
+    one process's, held to the one process against itself (the bf16
+    backward's reduce-adds and cuDNN vary run to run): each statistic within
+    MP_NOISE_FACTOR of that noise plus its MP_NOISE_FLOOR. Then the
+    checkpoint restored at one process takes the next step (counted) beside
+    the one process's own next step: the loss within TRAIN_GNORM_RTOL, that
+    step's update held to the same bound."""
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    log = [json.loads(line) for line in open(os.path.join(spec["train_out"], "train_log.jsonl"))]
+    train = [e for e in log if e["event"] == "train"]
+    if [e["event"] for e in log] != ["train"] * MP_STEPS + ["done"]:
+        raise AssertionError(f"the runner's log (rank 0 alone): {[e['event'] for e in log]}")
+    for r, res in enumerate(ranks):
+        _check_train_launches(f"rank {r}'s training", res["train"]["launches"], MP_STEPS,
+                              remat=False)
+        if res["no_zero_step"]["loss"] != ranks[0]["no_zero_step"]["loss"]:
+            raise AssertionError("the ranks report different losses")
+    if abs(ranks[0]["no_zero_step"]["loss"] / train[0]["loss"] - 1) > MP_LOSS_RTOL:
+        raise AssertionError(f"the first step without ZeRO: loss {ranks[0]['no_zero_step']}, "
+                             f"with ZeRO {train[0]}")
+    ref, take, start = reference["ref"], reference["take"], reference["start"]
+    out = {"steps": [], "launches": reference["launches"]}
+    for step, (m, t) in enumerate(reference["metrics"]):
+        rel = {k: abs(train[step][k] / m[k] - 1) for k in ("loss", "grad_norm")}
+        out["steps"].append({"ranks": {k: train[step][k] for k in m}, "one_process": m,
+                             "rel_diff": rel, "one_process_step_s": t})
+        if (rel["loss"] > (MP_LOSS_RTOL if step == 0 else TRAIN_GNORM_RTOL)
+                or rel["grad_norm"] > TRAIN_GNORM_RTOL):
+            raise AssertionError(f"step {step + 1}: the ranks' {train[step]} against one "
+                                 f"process's {m}")
+    lr = ref.learning_rate(MP_STEPS - 1)
+    path = os.path.join(spec["train_out"], f"step_{MP_STEPS:08d}.pt")
+    state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    ranks_params = [state["params"][n] for n in ref.names]
+    noise = _update_diff(start, reference["run0"], start, ref.params, ref.names, lr, ref.device)
+    out["update_one_process_rerun"] = noise
+    out["update_vs_one_process"] = _update_diff(start, reference["run0"], start, ranks_params,
+                                                ref.names, lr, ref.device)
+    # the next step from the one process's own state, and from the ranks' checkpoint
+    nxt = take(0, MP_REF_ACCUM)
+    before = [p.detach().clone() for p in ref.params]
+    m_ref = ref.train_step(nxt, tr.step_generator(MP_SEED, MP_STEPS, ref.device))
+    after = [p.detach().clone() for p in ref.params]
+    _, t_restore = _sync_time(lambda: ref.load_state_dict(state))
+    _reset_counts()
+    m = ref.train_step(nxt, tr.step_generator(MP_SEED, MP_STEPS, ref.device))
+    _check_train_launches("the step after the restore", _counts(),
+                          MP_REF_ACCUM // TRAIN_ACCUM, remat=False)
+    out["resumed_at_one_process"] = {
+        "step": ref.step, "loss": float(m["loss"]), "uninterrupted_loss": float(m_ref["loss"]),
+        "restore_s": t_restore,
+        "update_vs_uninterrupted": _update_diff(before, after, ranks_params, ref.params,
+                                                ref.names, lr, ref.device)}
+    out["checkpoint_gib"] = os.path.getsize(path) / 2**30
+    res = out["resumed_at_one_process"]
+    bad = [(name, key) for name, row in (("the two steps", out["update_vs_one_process"]),
+                                         ("the step after the restore",
+                                          res["update_vs_uninterrupted"]))
+           for key, floor in MP_NOISE_FLOOR.items()
+           if row[key] > MP_NOISE_FACTOR * noise[key] + floor]
+    if (bad or ref.step != MP_STEPS + 1
+            or abs(res["loss"] / res["uninterrupted_loss"] - 1) > TRAIN_GNORM_RTOL):
+        raise AssertionError(f"the ranks' updates beyond the one process's own noise ({bad}) or "
+                             f"the step after the restore: {json.dumps(out)[:3000]}")
+    reference.clear()
+    del ref, before, after, state, ranks_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def multi_process_phase(started) -> dict:
+    """The multi-process paths on the smoke's f16 SD1.4 directory (written by
+    ``entry_points_phase``, which leaves it), with the ranks ``mp_start``
+    started before it: MP_RANKS processes on the one card, joined by gloo,
+    run ``runners.run_sweep_sharded`` over an MP_IMAGES-image mini PIE-Bench
+    (x4 a rank, bf16, at the spec's steps), the same again, one step without
+    ZeRO and the training runner with ZeRO (MP_STEPS steps of a global batch
+    of MP_BATCH x MP_ACCUM at 256^2: 8 rows a rank); the checks of
+    ``_mp_check_sweep`` and ``_mp_check_training``; each rank's peak memory
+    with ZeRO and without. The kernels are built before the ranks start,
+    which load them. ``mp_start(device="cpu")`` lets a CPU rehearsal run it
+    (after ``entry_points_phase(config=TINY, device="cpu", keep=True)``)."""
+    t0 = time.perf_counter()
+    spec, steps = started[0], started[0]["steps"]
+    _mini_pie_bench(MP_DIR, MP_IMAGES, 512)
+    _pair_dataset(spec["pairs"], MP_PAIRS, TRAIN_CROP)
+    ranks, (slices, reference) = _mp_run(started, lambda: (_mp_slices(spec, steps),
+                                                           _mp_reference(spec)))
+    t_ranks = time.perf_counter() - t0
+    for res in ranks:
+        for key in PATH_SHAPES:
+            PATH_SHAPES[key].update(tuple(s) for s in res["path_shapes"][key])
+    out = {"ranks": MP_RANKS, "backend": "gloo", "ranks_s": t_ranks}
+    out["sweep"] = {
+        "images": MP_IMAGES, "steps": steps, "batch": BATCH,
+        "per_rank": [{k: res["sweep"][k] for k in ("run_s", "load_s", "launches")}
+                     for res in ranks],
+        # both ranks edit at once, beside the parent's one-process runs: the
+        # slower rank's edits over all the images (scripts/
+        # time_torch_multi_process.py times them alone)
+        "s_per_image_aggregate": max(res["sweep"]["run_s"] - sum(res["sweep"]["load_s"])
+                                     for res in ranks) / MP_IMAGES,
+        "rerun_s": [res["rerun"]["run_s"] for res in ranks],
+        **_mp_check_sweep(spec, ranks, steps, slices)}
+    print("multi_process_sweep", json.dumps(out["sweep"]), flush=True)
+    out["training"] = {
+        "global_batch": MP_BATCH, "accumulate_grad_batches": MP_ACCUM, "steps": MP_STEPS,
+        "per_rank": [{"run_s": res["train"]["run_s"], "launches": res["train"]["launches"],
+                      "peak_gib_zero": res["train"]["peak_gib"],
+                      "peak_gib_no_zero": res["no_zero_step"]["peak_gib"],
+                      "no_zero_step_s": res["no_zero_step"]["step_s"]} for res in ranks],
+        **_mp_check_training(spec, ranks, reference)}
+    print("multi_process_training", json.dumps(out["training"]), flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print("multi_process", json.dumps({k: out[k] for k in ("ranks", "backend", "ranks_s",
+                                                          "phase_s")}), flush=True)
+    return out
 
 
 BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -3356,7 +3922,15 @@ def main() -> int:
     training = training_phase()
     gc.collect()
     torch.cuda.empty_cache()
-    entry = entry_points_phase()
+    started = mp_start()  # the ranks warm their CUDA contexts during the entry points
+    try:
+        entry = entry_points_phase(keep=True)
+        multi = multi_process_phase(started)
+    finally:
+        import shutil
+
+        mp_stop(started)
+        shutil.rmtree(ENTRY_DIR, ignore_errors=True)
     print("path_shapes", json.dumps(_check_path_shapes()), flush=True)
     evaluation = eval_phase(batch_out)
     print("evaluation", json.dumps(evaluation), flush=True)
@@ -3386,6 +3960,16 @@ def main() -> int:
                       ("training with remat", training["training"]["remat_after_restore"])):
         fwd_by_path[name], bwd_by_path[name] = row["launches"]["fwd"], row["launches"]["main"]
     fwd_by_path[f"run_sweep x{BATCH}, {ENTRY_STEPS} steps"] = entry["sweep"]["launches"]["fwd"]
+    for r, row in enumerate(multi["sweep"]["per_rank"]):
+        fwd_by_path[f"run_sweep_sharded rank {r} of {MP_RANKS}, x{BATCH}, {ENTRY_STEPS} steps"] = (
+            row["launches"]["fwd"])
+    for r, row in enumerate(multi["training"]["per_rank"]):
+        name = (f"training rank {r} of {MP_RANKS} (ZeRO), {MP_STEPS} steps of "
+                f"{MP_BATCH // MP_RANKS} rows x {MP_ACCUM}")
+        fwd_by_path[name], bwd_by_path[name] = row["launches"]["fwd"], row["launches"]["main"]
+    name = f"training, one-process reference: {MP_STEPS} steps of 8 rows x {MP_REF_ACCUM}"
+    fwd_by_path[name] = multi["training"]["launches"]["fwd"]
+    bwd_by_path[name] = multi["training"]["launches"]["main"]
     f32_by_path[f"run_editing_p2p, {ENTRY_RUNNER_IMAGES} images at {ENTRY_STEPS} steps"] = (
         entry["runner"]["launches"]["fwd"])
     fwd_by_path[f"{BLD_STEPS} steps: blended-latent-diffusion"] = bld["launches"]["fwd"]

@@ -10,9 +10,12 @@ without mask or source prompt), and the edit panel cropped from the last
         --tgt_methods 1_directinversion+p2p
 
 It runs on the card unless ``--device cpu`` is given; without CUDA and
-without ``--device cpu`` it raises. Not ported: the JAX package's
-``--sharded``/``--batch_size`` evaluation over a device mesh (ROADMAP A12)
-and its retry on a TPU out-of-memory error.
+without ``--device cpu`` it raises. ``--sharded`` scores ``--batch_size``
+images a step (one per device by default) with ``evaluation.sharded``'s
+batched metrics over every GPU of the host (the device metrics only, as in
+the JAX package), and writes the same CSV, rewritten as each method folder
+completes; an unreadable target is "nan" there rather than an error. Not
+ported: the JAX package's retry on a TPU out-of-memory error.
 """
 from __future__ import annotations
 
@@ -173,12 +176,75 @@ def _normalized_items(annotation: Dict, edit_category_list: Sequence[str]):
             }
 
 
+def _evaluate_sharded(annotation: Dict, metrics: List[str], src_image_folder: str,
+                      tgt_image_folders: Dict[str, str], result_path: str,
+                      edit_category_list: Sequence[str], calc,
+                      batch_size: Optional[int]) -> None:
+    """The batched evaluation: the serial path's CSV, ``batch_size`` items a
+    step (the device count by default) through ``ShardedEvaluator`` on every
+    GPU of the host when the calculator is on one, else on its device."""
+    import torch
+
+    from pnpinversion_tpu_torch.evaluation.sharded import ShardedEvaluator
+
+    ev = ShardedEvaluator(calc, [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                          if calc.device.type == "cuda" else None)
+    batch_size = batch_size or len(ev.devices)
+    loaded = []
+    for it in _normalized_items(annotation, edit_category_list):
+        it["src"] = np.array(Image.open(os.path.join(src_image_folder, it["src_path"])))
+        loaded.append(it)
+    results: Dict[tuple, object] = {}
+    for fkey, folder in tgt_image_folders.items():
+        for lo in range(0, len(loaded), batch_size):
+            chunk = loaded[lo: lo + batch_size]
+            # a missing or corrupt target (a half-finished sweep) must not lose
+            # the rest: a blank image keeps the batch, and its cells are "nan"
+            tgts, bad = [], set()
+            for i, it in enumerate(chunk):
+                try:
+                    tgts.append(np.asarray(crop_edit_panel(Image.open(
+                        os.path.join(folder, it["tgt_path"])))))
+                except Exception as exc:  # noqa: BLE001 - one item's target, reported
+                    print(f"eval: unreadable target {fkey}/{it['tgt_path']}: {exc!r}")
+                    tgts.append(np.zeros_like(it["src"]))
+                    bad.add(i)
+            out = ev.evaluate_batch(metrics, np.stack([it["src"] for it in chunk]),
+                                    np.stack(tgts), np.stack([it["mask"] for it in chunk]),
+                                    [it["src_prompt"] for it in chunk],
+                                    [it["tgt_prompt"] for it in chunk])
+            for i, it in enumerate(chunk):
+                for m in metrics:
+                    results[(it["file_id"], fkey, m)] = (
+                        "nan" if i in bad or _nan_sentinel(m, it["mask"], it["has_mask"],
+                                                           it["src_prompt"])
+                        else float(out[m][i]))
+        # the CSV rewritten as each folder completes: a crash later keeps this work
+        _flush_sharded_rows(result_path, results, [it["file_id"] for it in loaded],
+                            tgt_image_folders, metrics)
+
+
+def _flush_sharded_rows(result_path: str, results: Dict[tuple, object], file_ids: List[str],
+                        tgt_image_folders: Dict[str, str], metrics: List[str]) -> None:
+    """Rewrites the CSV from the results so far, one row per item; cells not
+    scored yet are "nan"."""
+    head = [f"{key}|{m}" for key in tgt_image_folders for m in metrics]
+    with open(result_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["file_id"] + head)
+        for fid in file_ids:
+            w.writerow([fid] + [results.get((fid, fkey, m), "nan")
+                                for fkey in tgt_image_folders for m in metrics])
+
+
 def evaluate(annotation_mapping_file: str, metrics: List[str], src_image_folder: str,
              tgt_image_folders: Dict[str, str], result_path: str,
-             edit_category_list: Sequence[str], calc=None) -> None:
+             edit_category_list: Sequence[str], calc=None, sharded: bool = False,
+             batch_size: Optional[int] = None) -> None:
     """Scores every item of the mapping file in every method folder and
-    writes the CSV, a row per item as soon as it is scored. ``calc``
-    defaults to a ``MetricsCalculator`` on the card."""
+    writes the CSV, a row per item as soon as it is scored (``sharded``:
+    ``batch_size`` items a step, ``_evaluate_sharded``). ``calc`` defaults
+    to a ``MetricsCalculator`` on the card."""
     if calc is None:
         from pnpinversion_tpu_torch.evaluation.calculator import MetricsCalculator
 
@@ -188,6 +254,15 @@ def evaluate(annotation_mapping_file: str, metrics: List[str], src_image_folder:
         csv.writer(f).writerow(["file_id"] + head)
     with open(annotation_mapping_file) as f:
         annotation = json.load(f)
+    if sharded:
+        from pnpinversion_tpu_torch.evaluation.sharded import SUPPORTED
+
+        if not all(m in SUPPORTED for m in metrics):
+            raise ValueError(f"--sharded supports only device metrics ({SUPPORTED}); drop the "
+                             "flag for others")
+        _evaluate_sharded(annotation, metrics, src_image_folder, tgt_image_folders, result_path,
+                          edit_category_list, calc, batch_size)
+        return
     for it in _normalized_items(annotation, edit_category_list):
         mask = it["mask"]
         src_image = Image.open(os.path.join(src_image_folder, it["src_path"]))
@@ -219,6 +294,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--evaluate_whole_table", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the metrics run: cuda (raises without CUDA) or cpu")
+    parser.add_argument("--sharded", action="store_true",
+                        help="batch the metrics over images, split over the host's GPUs")
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="--sharded: images a step (default: one per device)")
     args = parser.parse_args(argv)
 
     registry = all_tgt_image_folders(args.output_root)
@@ -232,7 +311,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     calc = MetricsCalculator(checkpoint_dir=args.checkpoint_dir, device=args.device)
     evaluate(args.annotation_mapping_file, args.metrics, args.src_image_folder, folders,
-             args.result_path, args.edit_category_list, calc)
+             args.result_path, args.edit_category_list, calc, sharded=args.sharded,
+             batch_size=args.batch_size)
 
 
 if __name__ == "__main__":

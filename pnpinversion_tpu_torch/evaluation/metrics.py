@@ -50,13 +50,13 @@ def _gaussian_kernel(size: int, sigma: float, device) -> torch.Tensor:
     return torch.outer(g, g)
 
 
-def ssim(img_pred: torch.Tensor, img_gt: torch.Tensor, data_range: float = 1.0,
-         kernel_size: int = 11, sigma: float = 1.5, k1: float = 0.01,
-         k2: float = 0.03) -> torch.Tensor:
-    """SSIM as torchmetrics' StructuralSimilarityIndexMeasure computes it by
-    default: a depthwise Gaussian filter without padding (the borders are
-    cropped), the mean of the SSIM map. img: (H, W, C) or (B, H, W, C) in
-    [0, 1]."""
+def ssim_map(img_pred: torch.Tensor, img_gt: torch.Tensor, data_range: float = 1.0,
+             kernel_size: int = 11, sigma: float = 1.5, k1: float = 0.01,
+             k2: float = 0.03) -> torch.Tensor:
+    """The SSIM map (B, C, H - 10, W - 10) as torchmetrics'
+    StructuralSimilarityIndexMeasure computes it by default: a depthwise
+    Gaussian filter without padding (the borders are cropped). img: (H, W, C)
+    or (B, H, W, C) in [0, 1]."""
     if img_pred.dim() == 3:
         img_pred, img_gt = img_pred[None], img_gt[None]
     x = img_pred.float().permute(0, 3, 1, 2)
@@ -74,7 +74,14 @@ def ssim(img_pred: torch.Tensor, img_gt: torch.Tensor, data_range: float = 1.0,
     c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
     num = (2 * mu_x * mu_y + c1) * (2 * sigma_xy + c2)
     den = (mu_x ** 2 + mu_y ** 2 + c1) * (sigma_x + sigma_y + c2)
-    return torch.mean(num / den)
+    return num / den
+
+
+def ssim(img_pred: torch.Tensor, img_gt: torch.Tensor, data_range: float = 1.0,
+         kernel_size: int = 11, sigma: float = 1.5, k1: float = 0.01,
+         k2: float = 0.03) -> torch.Tensor:
+    """SSIM, the mean of ``ssim_map`` (over the batch too, for (B, H, W, C))."""
+    return torch.mean(ssim_map(img_pred, img_gt, data_range, kernel_size, sigma, k1, k2))
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -132,17 +139,17 @@ def resize(img: torch.Tensor, size: Sequence[int], method: str = "bicubic") -> t
 def center_crop_resize_224(img: torch.Tensor, size: int = 224,
                            method: str = "bicubic") -> torch.Tensor:
     """CLIP preprocessing: resize the shortest side to ``size``, then crop the
-    centre. img: (H, W, C) float. The long side truncates (``int()``), as
-    transformers' ``get_resize_output_image_size`` does for torchmetrics'
+    centre. img: (..., H, W, C) float. The long side truncates (``int()``),
+    as transformers' ``get_resize_output_image_size`` does for torchmetrics'
     CLIPScore: a ``round()`` would move the crop by a pixel."""
-    h, w, _ = img.shape
+    h, w = img.shape[-3], img.shape[-2]
     if h <= w:
         nh, nw = size, max(size, int(w * size / h))
     else:
         nh, nw = max(size, int(h * size / w)), size
     img = resize(img, (nh, nw), method)
     top, left = (nh - size) // 2, (nw - size) // 2
-    return img[top : top + size, left : left + size]
+    return img[..., top : top + size, left : left + size, :]
 
 
 def _normalize(img: torch.Tensor, mean, std) -> torch.Tensor:

@@ -61,7 +61,7 @@ def unit_normalize(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 class LPIPS(nn.Module):
     """SqueezeNet-1.1 taps and the seven linear heads. ``forward(img0,
     img1)`` takes (B, H, W, 3) images in [-1, 1] and returns the LPIPS
-    distance summed over the batch, a scalar."""
+    distance summed over the batch, a scalar; ``distances`` each pair's."""
 
     def __init__(self):
         super().__init__()
@@ -86,16 +86,20 @@ class LPIPS(nn.Module):
         return taps
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
+        return self.distances(img0, img1).sum()
+
+    def distances(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
+        """The LPIPS distance of each pair, (B,) f32."""
         shift = torch.tensor(SHIFT, dtype=torch.float32, device=img0.device)
         scale = torch.tensor(SCALE, dtype=torch.float32, device=img0.device)
 
         def prep(img):
             return ((img.float() - shift) / scale).permute(0, 3, 1, 2)
 
-        total = torch.zeros((), dtype=torch.float32, device=img0.device)
+        total = torch.zeros(img0.shape[0], dtype=torch.float32, device=img0.device)
         for t0, t1, lin in zip(self.features(prep(img0)), self.features(prep(img1)), self.lins):
             d = (unit_normalize(t0) - unit_normalize(t1)) ** 2
-            total = total + lin(d.float()).mean(dim=(1, 2, 3)).sum()
+            total = total + lin(d.float()).mean(dim=(1, 2, 3))
         return total
 
 

@@ -157,3 +157,16 @@ def structure_distance(model: ViT, img_gt: torch.Tensor, img_pred: torch.Tensor,
     a = dino_keys_self_sim(model, img_gt, layer)
     b = dino_keys_self_sim(model, img_pred, layer)
     return torch.mean((a - b) ** 2)
+
+
+def structure_distances(model: ViT, img_gt: torch.Tensor, img_pred: torch.Tensor,
+                        layer: int = 11) -> torch.Tensor:
+    """``structure_distance`` of each pair of a batch, (B,): inputs (B, 224,
+    224, 3), both batches through one forward."""
+    _, qkvs = model(torch.cat([img_gt, img_pred]), return_qkv=True)
+    w = model.config.width
+    keys = qkvs[layer][:, :, w : 2 * w]
+    norm = torch.linalg.norm(keys, dim=2, keepdim=True)
+    sim = (keys @ keys.transpose(1, 2)) / torch.clamp(norm @ norm.transpose(1, 2), min=1e-8)
+    a, b = sim.chunk(2)
+    return torch.mean((a - b) ** 2, dim=(1, 2))

@@ -15,10 +15,11 @@ unreadable input is logged and dropped up front. ``--batch_per_device 0``
 picks 4 on the card for the light P2P family (the JAX runner's probed
 optimum) and 1 otherwise, and 1 on the CPU. The pipeline is bf16 on the
 card and f32 on the CPU, as the JAX runner's. A strip is written on a worker
-thread while the card edits the next batch. One process, one GPU: the JAX
-runner's mesh and multi-host flags (``--n_devices``, ``--tp``,
-``--num_processes``, ``--process_id``, ``--coordinator_address``) come with
-the multi-GPU sweep (ROADMAP A12).
+thread while the card edits the next batch. One process, one GPU; the
+multi-process sweep, one process per GPU with the JAX runner's
+``--n_devices``/``--num_processes``/``--process_id``/``--coordinator_address``
+flags, is ``runners/run_sweep_sharded.py``, which runs these functions on
+each process's slice.
 """
 from __future__ import annotations
 
@@ -315,13 +316,18 @@ def auto_batch(method: str, device: torch.device) -> int:
     return 4 if light and device.type == "cuda" else 1
 
 
-def pending_items(args, method: str, logger: RunLogger) -> list:
-    """The items whose strip is not written yet, readable ones only: an
-    unreadable input is logged and dropped (it would fail every restart at
-    the same chunk)."""
+def sweep_items(args) -> list:
+    """The mapping file's items in the chosen categories, in its order."""
     dataset = PieBenchDataset(args.data_path, mapping_file=args.mapping_file)
+    return list(dataset.items(args.edit_category_list))
+
+
+def pending_items(args, method: str, logger: RunLogger, items=None) -> list:
+    """The items (``sweep_items`` unless given) whose strip is not written
+    yet, readable ones only: an unreadable input is logged and dropped (it
+    would fail every restart at the same chunk)."""
     pending = []
-    for item in dataset.items(args.edit_category_list):
+    for item in sweep_items(args) if items is None else items:
         rel = item.rel_output_path(os.path.join(args.data_path, "annotation_images"))
         save_path = os.path.join(args.output_path, FOLDERS.get(method, method),
                                  "annotation_images", rel)
@@ -339,8 +345,8 @@ def pending_items(args, method: str, logger: RunLogger) -> list:
     return pending
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Returns {"images": edited, "batch": images per call}."""
+def sweep_argparser():
+    """The runners' flags plus the sweep's own."""
     parser = standard_argparser(["directinversion+p2p"])
     parser.add_argument("--caption_file", type=str, default=None,
                         help="pix2pix-zero: JSON {image key: caption} instead of BLIP")
@@ -348,24 +354,28 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser.add_argument("--batch_per_device", type=int, default=0,
                         help="images per call; 0 = auto (4 on the card for the light P2P "
                              "family, 1 otherwise and on the CPU)")
-    args = parser.parse_args(argv)
-    check_args(args)
-    method = args.method
-    # BLD runs SD2.1-base (run_editing_blended_latent_diffusion.py:43), the
-    # instruction editors the 8-channel UNet, everything else SD1.4
+    return parser
+
+
+def sweep_pipeline(args, method: str, device=None) -> SDPipeline:
+    """The method's pipeline: BLD runs SD2.1-base
+    (run_editing_blended_latent_diffusion.py:43), the instruction editors the
+    8-channel UNet, everything else SD1.4; bf16 on the card, f32 on the CPU;
+    the step-count ablations at their own steps."""
     config = (SD21 if method == "blended-latent-diffusion"
               else IP2P if method.startswith("instruct") else SD14)
     steps = BatchedDirectInversionP2P.step_ablation_steps(method) or args.num_ddim_steps
-    pipe = SDPipeline.create(config, num_ddim_steps=steps, checkpoint_dir=args.checkpoint_dir,
-                             device=args.device)  # bf16 on the card, f32 on the CPU
-    logger = RunLogger(args.run_log)
-    size = pipe.config.image_size
-    pending = pending_items(args, method, logger)
-    if not pending:
-        print("nothing to do", flush=True)
-        return {"images": 0, "batch": 0}
+    return SDPipeline.create(config, num_ddim_steps=steps, checkpoint_dir=args.checkpoint_dir,
+                             device=args.device if device is None else device)
+
+
+def run_sweep(args, method: str, pipe, pending, logger: RunLogger) -> int:
+    """Edits ``pending`` with the method's batched class, ``--batch_per_device``
+    images a call (auto when 0), the strips written on a worker thread.
+    Returns the batch."""
     batch = args.batch_per_device if args.batch_per_device > 0 else auto_batch(method,
                                                                                pipe.device)
+    size = pipe.config.image_size
     saver = PipelinedSaver(size, logger, method)
     try:
         if BatchedDirectInversionP2P.supports(method):
@@ -388,6 +398,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             sweep_pnp(pipe, pending, batch, size, saver, method)
     finally:
         saver.close()
+    return batch
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Returns {"images": edited, "batch": images per call}."""
+    args = sweep_argparser().parse_args(argv)
+    check_args(args)
+    method = args.method
+    pipe = sweep_pipeline(args, method)
+    logger = RunLogger(args.run_log)
+    pending = pending_items(args, method, logger)
+    if not pending:
+        print("nothing to do", flush=True)
+        return {"images": 0, "batch": 0}
+    batch = run_sweep(args, method, pipe, pending, logger)
     logger.log("sweep_done", images_total=len(pending), method=method)
     print(json.dumps({"sweep_done": len(pending), "batch": batch}), flush=True)
     return {"images": len(pending), "batch": batch}

@@ -1,5 +1,5 @@
-"""Edit-conditioned latent-diffusion training on one GPU (port of
-``pnpinversion_tpu/training/trainer.py``).
+"""Edit-conditioned latent-diffusion training on one GPU or data parallel over
+several (port of ``pnpinversion_tpu/training/trainer.py``).
 
 The objective is the JAX trainer's (``ddpm_edit.py`` semantics):
 
@@ -30,10 +30,25 @@ draws what an uninterrupted one draws without saving a generator's state.
 The loss also takes the draws explicitly, so tests can hand it the very
 values JAX draws.
 
-One device: the JAX trainer's dp/tp mesh and ZeRO-sharded moments are
-ROADMAP A12. Checkpoints are ``torch.save`` files ``<dir>/step_<n:08d>.pt``
-of the whole state; reading the JAX trainer's orbax checkpoints is A13
-(``convert.train_state_from_jax`` carries a live JAX state across).
+Data parallel over a ``torch.distributed`` group (``group=``, one process
+per GPU; the JAX trainer's ``dp`` mesh axis): ``batch_per_step`` is the
+global batch, and each of the W ranks takes its B/W rows of every
+microbatch (its own data stream). Every rank draws the *global* batch's
+draws from the step's generator and keeps its rows, so a W-rank step is the
+one-rank step on the same global batch. The rows' gradient sums are
+all-reduced in flat buckets (``multihost.all_reduce_``) and divided into the
+global mean; the grad norm and the clip are taken on the reduced gradients.
+With ``TrainConfig.zero`` (ZeRO-1, the JAX ``zero_shardings``) each rank
+keeps Adam's moments for its block of each tensor only (``zero_partition``:
+the largest axis W divides, else the whole tensor on every rank), updates
+that block, and every rank's blocks are gathered into every rank's
+parameters (a broadcast from each rank); the EMA stays whole on every rank. The learning rate scales with
+n_dp = W. The tensor-parallel axis is not ported (ROADMAP A17).
+
+Checkpoints are ``torch.save`` files ``<dir>/step_<n:08d>.pt`` of the whole
+state at any W (the moments gathered; rank 0 writes), and a checkpoint of
+any W restores at any W. Reading the JAX trainer's orbax checkpoints is not
+ported (``convert.train_state_from_jax`` carries a live JAX state across).
 """
 from __future__ import annotations
 
@@ -43,12 +58,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from pnpinversion_tpu_torch.configs import StableDiffusionConfig
 from pnpinversion_tpu_torch.models.clip_text import CLIPTextModel
 from pnpinversion_tpu_torch.models.unet import UNet
 from pnpinversion_tpu_torch.models.vae import VAE
+from pnpinversion_tpu_torch.parallel import multihost
 from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
 
 F32 = np.float32
@@ -58,7 +75,7 @@ Draws = Dict[str, torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Hyperparameters, defaults = configs/train.yaml + torch AdamW (the JAX
-    ``TrainConfig`` less ``zero``, which needs a dp mesh: A12)."""
+    ``TrainConfig``)."""
 
     base_lr: float = 1e-4
     scale_lr: bool = True            # lr = accum * n_dp * batch * base_lr
@@ -71,6 +88,7 @@ class TrainConfig:
     accum: int = 4                   # accumulate_grad_batches
     uncond_prob: float = 0.05
     ema_decay: float = 0.9999        # LitEMA default
+    zero: bool = True                # shard Adam's moments over the ranks (ZeRO-1)
     dtype: torch.dtype = torch.bfloat16  # compute dtype; master weights stay f32
     remat: bool = False              # checkpoint the UNet forward: its activations
     # are recomputed in the backward (the flash forward runs twice)
@@ -122,6 +140,24 @@ def cond_dropout_masks(r: torch.Tensor, uncond_prob: float
     drop_prompt = r < 2 * u
     keep_image = ~((r >= u) & (r < 3 * u))
     return drop_prompt, keep_image
+
+
+# the JAX layout's axis of each torch axis of a weight: a Linear's (out, in)
+# is JAX's (in, out) transposed, a Conv2d's OIHW is JAX's HWIO
+_JAX_AXES = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
+def zero_partition(shape: Sequence[int], world: int) -> Optional[int]:
+    """The axis along which ZeRO splits a tensor of this (port-layout) shape
+    into ``world`` blocks, one a rank: the largest axis ``world`` divides,
+    ties going to the axis that comes first in the JAX layout, so that it is
+    the axis the JAX ``zero_shardings`` picks for the same leaf; None (the
+    whole tensor on every rank) when no axis qualifies or ``world`` is 1."""
+    if world <= 1:
+        return None
+    jax_axes = _JAX_AXES.get(len(shape), tuple(range(len(shape))))
+    axes = [a for a in range(len(shape)) if shape[a] % world == 0 and shape[a] >= world]
+    return min(axes, key=lambda a: (-shape[a], jax_axes[a])) if axes else None
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -181,21 +217,30 @@ def _f32_copy(module: torch.nn.Module) -> torch.nn.Module:
 
 
 class EditTrainer:
-    """The train and validation steps and the training state on one device.
+    """The train and validation steps and the training state, on one device
+    or data parallel over ``group`` (one device a rank).
 
     State: ``unet`` (the f32 masters, an ``in_channels``-channel UNet that
     requires grad), ``ema`` (an f32 UNet), the Adam moments ``mu``/``nu``
-    (f32, by parameter name), ``count`` (Adam's and the schedule's) and
-    ``step``. ``frozen``: {"vae": VAE, "text": CLIPTextModel}, used as they
-    are (a bf16 pipeline's modules compute in bf16 on bf16 inputs)."""
+    (f32, by parameter name; with ZeRO, each rank's block of each tensor),
+    ``count`` (Adam's and the schedule's) and ``step``. ``frozen``: {"vae":
+    VAE, "text": CLIPTextModel}, used as they are (a bf16 pipeline's modules
+    compute in bf16 on bf16 inputs). ``batch_per_step`` is the global batch
+    of a microbatch, of which each rank takes ``batch_per_step / W`` rows."""
 
     def __init__(self, model_config: StableDiffusionConfig, frozen: Dict[str, torch.nn.Module],
-                 unet: UNet, cfg: TrainConfig, batch_per_step: int, null_ids):
+                 unet: UNet, cfg: TrainConfig, batch_per_step: int, null_ids, group=None):
         self.config = model_config
         self.cfg = cfg
+        self.group = group
+        self.world = dist.get_world_size(group) if group is not None else 1
+        self.rank = dist.get_rank(group) if group is not None else 0
+        if batch_per_step % self.world:
+            raise ValueError(f"batch_per_step {batch_per_step} is not a multiple of the "
+                             f"{self.world} ranks")
         self.vae: VAE = frozen["vae"]
         self.text: CLIPTextModel = frozen["text"]
-        self._lr = lambda_linear_lr(cfg, 1, batch_per_step)
+        self._lr = lambda_linear_lr(cfg, self.world, batch_per_step)
         self.unet = _f32_copy(unet).requires_grad_(True)
         self.ema = _f32_copy(unet).requires_grad_(False)
         self.device = self.unet.conv_in.weight.device
@@ -203,13 +248,19 @@ class EditTrainer:
         self.params = [p for _, p in self.unet.named_parameters()]
         ema = dict(self.ema.named_parameters())
         self.ema_params = [ema[n] for n in self.names]
-        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.parts = [zero_partition(p.shape, self.world) if cfg.zero else None
+                      for p in self.params]
+        self.mu = [torch.zeros(self._own(p, a).shape, dtype=torch.float32, device=self.device)
+                   for p, a in zip(self.params, self.parts)]
+        self.nu = [torch.zeros_like(m) for m in self.mu]
         self.count = 0
         self.step = 0
         self.null_ids = torch.as_tensor(null_ids).to(device=self.device, dtype=torch.int64)
         self.acp = torch.as_tensor(make_ddim_schedule().alphas_cumprod, device=self.device)
         self.latent_factor = 2 ** (len(model_config.vae.block_out_channels) - 1)
+
+    def _own(self, t: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+        return multihost.block(t, axis, self.rank, self.world)
 
     # ------------------------------------------------------------------ loss
     def draw(self, batch: int, image_hw: int, generator: Optional[torch.Generator]) -> Draws:
@@ -258,17 +309,25 @@ class EditTrainer:
     def _microbatches(self, batch: Dict[str, Any], generator, draws):
         edited, cond_image, ids = (torch.as_tensor(batch[k], device=self.device)
                                    for k in ("edited", "cond_image", "ids"))
+        b = edited.shape[1]
         for i in range(edited.shape[0]):
             d = (draws[i] if draws is not None
-                 else self.draw(edited.shape[1], edited.shape[2], generator))
+                 else self.draw(b * self.world, edited.shape[2], generator))
+            if d["t"].shape[0] != b * self.world:
+                raise ValueError(f"the draws hold {d['t'].shape[0]} rows, want the global "
+                                 f"batch's {b * self.world}")
+            if self.world > 1:  # this rank's rows of the global batch's draws
+                d = {k: v[self.rank * b: (self.rank + 1) * b] for k, v in d.items()}
             yield edited[i].float(), cond_image[i].float(), ids[i].long(), d
 
     # ------------------------------------------------------------------ step
     def train_step(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
                    draws: Optional[Sequence[Draws]] = None) -> Dict[str, torch.Tensor]:
-        """batch: edited/cond_image (A, B, H, W, 3) f32, ids (A, B, 77); A
-        microbatches, each drawing from ``generator`` (or taking
-        ``draws[i]``). Returns {"loss", "grad_norm"} (f32 scalars)."""
+        """batch: this rank's rows, edited/cond_image (A, B/W, H, W, 3) f32,
+        ids (A, B/W, 77); A microbatches, each drawing the global batch's
+        draws from ``generator`` (or taking ``draws[i]``, the global batch's)
+        and keeping this rank's rows. Returns {"loss", "grad_norm"} (f32
+        scalars, over the global batch)."""
         for p in self.params:
             p.grad = None
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -281,13 +340,17 @@ class EditTrainer:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         for p in self.params:
             p.grad = None
-        torch._foreach_div_(grads, n)
-        loss = loss / n
-        gnorm = global_norm(grads)
         with torch.no_grad():
-            adamw_update_(self.params, grads, self.mu, self.nu, self.count,
-                          self._lr(self.count), self.cfg, gnorm)
+            if self.group is not None:  # the sums over every rank's rows, then the mean
+                multihost.all_reduce_(grads + [loss], self.group)
+            torch._foreach_div_(grads, n * self.world)
+            loss = loss / (n * self.world)
+            gnorm = global_norm(grads)
+            adamw_update_([self._own(p, a) for p, a in zip(self.params, self.parts)],
+                          [self._own(g, a) for g, a in zip(grads, self.parts)],
+                          self.mu, self.nu, self.count, self._lr(self.count), self.cfg, gnorm)
             del grads
+            self._assemble_params()
             self.count += 1
             self.step += 1
             # LitEMA's warm-up on the incremented step, in f32
@@ -297,53 +360,105 @@ class EditTrainer:
             torch._foreach_add_(self.ema_params, self.params, alpha=float(F32(1.0) - d))
         return {"loss": loss, "grad_norm": gnorm}
 
+    def _assemble_params(self) -> None:
+        """Every rank's updated blocks into every rank's parameters
+        (``multihost.all_gather_blocks_``)."""
+        split = [(p, a) for p, a in zip(self.params, self.parts) if a is not None]
+        if split:
+            multihost.all_gather_blocks_([p for p, _ in split], [a for _, a in split],
+                                         self.group)
+
     @torch.no_grad()
     def val_step(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
                  draws: Optional[Sequence[Draws]] = None) -> torch.Tensor:
         """The loss under the EMA weights (the reference copies the EMA into
-        the model for its validation pass)."""
+        the model for its validation pass), over the global batch."""
         losses = [self.microbatch_loss(self.ema, e, c, i, d)
                   for e, c, i, d in self._microbatches(batch, generator, draws)]
-        return torch.stack(losses).sum() / len(losses)
+        loss = torch.stack(losses).sum()
+        if self.group is not None:
+            multihost.all_reduce_([loss], self.group)
+        return loss / (len(losses) * self.world)
 
     def learning_rate(self, step: Optional[int] = None) -> float:
         return self._lr(self.step if step is None else step)
 
     # ---------------------------------------------------------------- state
+    def _whole_moments(self, keep: bool = True) -> Dict[str, Dict[str, torch.Tensor]]:
+        """mu and nu by name, whole: the rank's own tensors where they are
+        whole, else every rank's blocks gathered bucket by bucket (a
+        collective) and kept on the host (not kept without ``keep``: a rank
+        that only takes part in the gather)."""
+        out: Dict[str, Dict[str, torch.Tensor]] = {"mu": {}, "nu": {}}
+        split = []
+        for key, moments in (("mu", self.mu), ("nu", self.nu)):
+            for name, p, m, a in zip(self.names, self.params, moments, self.parts):
+                if a is None:
+                    out[key][name] = m
+                else:
+                    split.append((key, name, p, m, a))
+        while split:  # one bucket of whole tensors at a time on the card
+            bucket, size = [], 0
+            while split and (not bucket or size + split[0][2].numel() * 4
+                             <= multihost.BUCKET_BYTES):
+                bucket.append(split.pop(0))
+                size += bucket[-1][2].numel() * 4
+            whole = []
+            for _, _, p, m, a in bucket:
+                w = torch.empty(p.shape, dtype=torch.float32, device=self.device)
+                self._own(w, a).copy_(m)
+                whole.append(w)
+            multihost.all_gather_blocks_(whole, [a for *_, a in bucket], self.group)
+            for (key, name, *_), w in zip(bucket, whole):
+                if keep:
+                    out[key][name] = w.cpu()
+        return out
+
     def state_dict(self) -> Dict[str, Any]:
-        """The whole training state, by parameter name."""
+        """The whole training state, by parameter name (a collective when
+        the moments are sharded: every rank calls it)."""
+        moments = self._whole_moments()
         return {"params": {n: p.detach() for n, p in zip(self.names, self.params)},
                 "ema": {n: p.detach() for n, p in zip(self.names, self.ema_params)},
-                "mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu)),
-                "count": self.count, "step": self.step}
+                "mu": moments["mu"], "nu": moments["nu"], "count": self.count, "step": self.step}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Copies a state (``state_dict``'s layout; tensors or numpy arrays,
-        e.g. ``convert.train_state_from_jax``'s) into this trainer."""
-        for key, dst in (("params", self.params), ("ema", self.ema_params), ("mu", self.mu),
-                         ("nu", self.nu)):
+        """Copies a whole state (``state_dict``'s layout, from any number of
+        ranks; tensors or numpy arrays, e.g. ``convert.train_state_from_jax``'s)
+        into this trainer: the moments' blocks this rank owns."""
+        for key, dst, parts in (("params", self.params, None), ("ema", self.ema_params, None),
+                                ("mu", self.mu, self.parts), ("nu", self.nu, self.parts)):
             src = state[key]
             if set(src) != set(self.names):
                 raise KeyError(f"{key}: the state's names differ from the UNet's: "
                                f"{sorted(set(src) ^ set(self.names))[:5]}")
-            for name, t in zip(self.names, dst):
+            for i, (name, t) in enumerate(zip(self.names, dst)):
                 v = src[name]
-                t.copy_(v if isinstance(v, torch.Tensor) else torch.from_numpy(
-                    np.array(v, dtype=np.float32)))
+                v = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                    np.array(v, dtype=np.float32))
+                t.copy_(self._own(v, parts[i]) if parts is not None else v)
         self.count, self.step = int(state["count"]), int(state["step"])
 
     def save(self, directory: str) -> str:
-        """Writes the state to ``<directory>/step_<n:08d>.pt``; returns its path."""
-        os.makedirs(directory, exist_ok=True)
+        """Writes the whole state to ``<directory>/step_<n:08d>.pt`` (rank 0
+        writes; a collective: every rank calls it, and it returns when the
+        file is complete); returns its path."""
         path = os.path.join(os.path.abspath(directory), f"step_{self.step:08d}.pt")
-        torch.save(self.state_dict(), path + ".tmp")
-        os.replace(path + ".tmp", path)
+        if self.rank == 0:
+            os.makedirs(directory, exist_ok=True)
+            torch.save(self.state_dict(), path + ".tmp")
+            os.replace(path + ".tmp", path)
+        else:
+            self._whole_moments(keep=False)  # this rank's part of the gather
+        if self.group is not None:
+            dist.barrier(self.group)
         return path
 
     def restore(self, path: Optional[str] = None, directory: Optional[str] = None) -> bool:
-        """Loads ``path``, or the latest ``step_*.pt`` in ``directory``;
-        returns False (a fresh run) when there is none."""
+        """Loads ``path``, or the latest ``step_*.pt`` in ``directory``, saved
+        at any number of ranks; returns False (a fresh run) when there is
+        none. The file is mapped, not read whole: a rank reads what it keeps."""
         if path is None:
             if directory is None:
                 raise ValueError("restore: give a checkpoint path or a directory")
@@ -352,5 +467,5 @@ class EditTrainer:
             if not steps:
                 return False
             path = os.path.join(directory, steps[-1])
-        self.load_state_dict(torch.load(path, map_location=self.device, weights_only=True))
+        self.load_state_dict(torch.load(path, map_location="cpu", weights_only=True, mmap=True))
         return True

@@ -10,6 +10,8 @@ the other test workers.
 """
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -176,3 +178,53 @@ def make_pair_dataset(root: str, n_items: int = 6, res: int = 20, seeds_per_item
     with open(os.path.join(root, "seeds.json"), "w") as f:
         json.dump(seeds, f)
     return root
+
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_mp_worker.py")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(scenario: str, cfg: dict, out_dir: str, n: int = 2, timeout: float = 150.0) -> list:
+    """Runs ``tests/_torch_mp_worker.py SCENARIO`` as n gloo ranks on the
+    loopback (a free port for rank 0) with ``cfg`` (plus ``out``: out_dir)
+    and returns each rank's JSON result. A rank that fails or outlasts
+    ``timeout`` seconds fails the test, and every rank is ended."""
+    import json
+    import subprocess
+    import sys
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{scenario}.json")
+    with open(path, "w") as f:
+        json.dump({**cfg, "out": out_dir}, f)
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XLA_FLAGS")}
+    address = f"127.0.0.1:{free_port()}"
+    logs = [open(os.path.join(out_dir, f"{scenario}_rank{r}.log"), "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, WORKER, scenario, path, "--num_processes", str(n),
+                               "--process_id", str(r), "--coordinator_address", address],
+                              env=env, stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(out_dir, f"{scenario}_rank{r}.log")) as f:
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{f.read()[-4000:]}"
+    results = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results

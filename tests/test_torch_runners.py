@@ -305,6 +305,7 @@ def test_sweep_matches_the_batched_class(tmp_path, tiny):
 
 ENTRY_POINTS = {
     "pnpinversion_tpu_torch.runners.run_sweep": ["--data_path", "D"],
+    "pnpinversion_tpu_torch.runners.run_sweep_sharded": ["--data_path", "D"],
     "pnpinversion_tpu_torch.runners.run_editing_p2p_one_image": [
         "--image_path", "I", "--prompt_src", "a", "--prompt_tar", "b"],
     "pnpinversion_tpu_torch.runners.edit_cli": ["--input", "I", "--output", "O", "--edit", "e"],

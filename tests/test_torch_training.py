@@ -261,9 +261,10 @@ def test_training_cli_end_to_end(tmp_path, monkeypatch):
 
 def test_training_entry_points_refuse_what_they_cannot_do(tmp_path):
     """No CUDA and no ``--device cpu``: the runner raises (no quiet CPU
-    run); ``--checkpoint_dir`` is read strictly (a directory without weights
-    raises); the multi-device flags of the JAX runner (A12) are not
-    accepted."""
+    run), also before starting ``--n_devices`` processes; ``--checkpoint_dir``
+    is read strictly (a directory without weights raises); of the JAX
+    runner's multi-device flags, ``--tp > 1`` raises (ROADMAP A17) and
+    ``--num_processes`` needs a rank and an address."""
     from pnpinversion_tpu_torch.runners import run_training_instructpix2pix as runner
 
     argv = _cli_argv(str(tmp_path / "ds"), str(tmp_path / "run"))
@@ -272,6 +273,10 @@ def test_training_entry_points_refuse_what_they_cannot_do(tmp_path):
             runner.main(argv)
     with pytest.raises(FileNotFoundError, match="no pipeline weights"):
         runner.main(argv + ["--device", "cpu", "--checkpoint_dir", str(tmp_path / "none")])
-    for flag in ("--tp", "--n_devices", "--num_processes"):
-        with pytest.raises(SystemExit):
-            runner.main(argv + [flag, "2"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            runner.main(argv + ["--n_devices", "2"])
+    with pytest.raises(NotImplementedError, match="A17"):
+        runner.main(argv + ["--device", "cpu", "--tp", "2"])
+    with pytest.raises(ValueError, match="process_id"):
+        runner.main(argv + ["--device", "cpu", "--num_processes", "2"])
