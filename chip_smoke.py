@@ -42,15 +42,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    null-text's per-image early stop (two images, one of which stops early);
    then the MasaCtrl, PnP and edit-friendly DDPM families: one counted edit
    each of ``directinversion+masactrl``, ``directinversion+pnp`` and
-   ``edit-friendly-inversion+p2p`` at 50 steps (timed per phase), their
-   batched classes on 4 images at 50 steps, each image against the
+   ``edit-friendly-inversion+p2p`` at 20 steps (timed per phase), their
+   batched classes on 4 images at 20 steps, each image against the
    single-image editor, images kept in place unmoved when the others
    change, ``ddim+masactrl`` and ``ddim+pnp`` at 5 steps, and one UNet call
    under each other MasaCtrl control (union, masks, auto masks); EF's UNet
    computes in f32 (the bf16 pipeline's layers cast their weights to its
    f32 latents), so its runs launch only the f32 forward; then EDICT, in
    f32 the same way: the cost of that per-call cast against an f32 copy of
-   the UNet, one counted ``edict+p2p`` edit at 50 steps with the float64
+   the UNet, one counted ``edict+p2p`` edit at 20 steps with the float64
    carry (timed per pass), the f32 attention's share of an edit from a
    device trace (5 steps), ``edict+direct_forward`` at 5 with the f32
    carry, ``BatchedEDICT`` on 4 images at 3 for both methods (each image
@@ -65,7 +65,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one counted ``stylediffusion+p2p`` edit at 3 steps and 3 inner steps (its
    training runs the backward at nine sites) and ``BatchedStyleDiffusion``
    on the 4 images; then, the SD1.4 pipeline freed, Blended Latent Diffusion
-   on its own SD2.1 pipeline (64-dim heads): one counted 50-step edit and
+   on its own SD2.1 pipeline (64-dim heads): one counted 20-step edit and
    ``BatchedBLD`` on 4 images, images kept in place unmoved when the others
    change;
 8. the f32 pipeline (``SDPipeline.create(..., dtype=torch.float32)``, full
@@ -74,8 +74,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    trace of the f32 null-text edit (the f32 backward's share), and
    one UNet call with TF32 on against full f32; then InstructPix2Pix and
    InstructDiffusion on an IP2P pipeline (the 8-channel UNet, bf16, its UNet
-   in f32): one counted edit each at 50 steps and ``BatchedInstruct`` on 4
-   images at 50 (each edit within 2 uint8 levels of the editor's); then
+   in f32): one counted edit each at 20 steps and ``BatchedInstruct`` on 4
+   images at 20 (each edit within 2 uint8 levels of the editor's); then
    the InstructPix2Pix training path on its own SD1.4 pipeline: a prompt
    dataset of 2 template records, 4 candidate pairs each at 512^2 (one
    sampler call of 16 rows, P2P self-attention sharing, the full-width CLIP
@@ -102,9 +102,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    256^2, 8 rows a rank; against one process on the same 32 rows a step as
    batch 8 x 4, loss, grad norm and state; the ranks' checkpoint resumed at
    one process) and one step without ZeRO, each rank's launches counted and
-   its peak memory both ways; every shape that these paths launched a
-   kernel at, in either dtype, must be one that phase 3 held against the
-   plain version;
+   its peak memory both ways; then the weight-only int8 UNet
+   (``w8_phase``): ``runners.run_sweep --quant w8`` x4 on that directory
+   and the x1 edit float then w8 at 50 steps (s, peak memory, weight bytes,
+   one UNet call's eps against float); then the tensor-parallel axis
+   (``tp_phase``): two more ranks on the card, one tp group over gloo,
+   started early, run ``run_sweep_sharded --tp 2`` over 2 images (every
+   strip written once, each image counted once), one UNet call in bf16 and
+   f32 and a training step of 8 rows split over the group, each against one
+   process beside them (the f32 eps within 1e-4; the bf16 eps, the panels
+   and the loss within twice one process's own bf16 spread); every shape
+   that these paths launched a kernel at, in either dtype, must be one that
+   phase 3 held against the plain version;
 9. the PIE-Bench evaluator at full width (CLIP ViT-L/14, DINO ViT-B/8,
    SqueezeNet LPIPS, random weights, f32) over the batched path's strips,
    written in the runners' layout with a synthetic mapping file: the CSV's
@@ -113,7 +122,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward of each metric model over the batch), its CSV within 1e-3 of the
    serial one, seconds per image both ways;
 10. print one JSON line of kernel numbers (launches of each kernel on every
-   path), the script's total seconds, then the result line.
+   path), each phase's seconds, the script's total seconds, then the result
+   line.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA it
 exits non-zero before printing any result.
@@ -206,6 +216,9 @@ F32_FLASH_CASES = [
     # pnpinversion_tpu_torch.convert) runs the f32 UNet on a 32^2 latent: its
     # first level's sites are 1024 tokens of d = 40
     ("f32_convert_smoke_32x32_d40", 1, 8, 1024, 1024, 40, True, False),
+    # tp_phase's f32 loss of the training step's 8 rows at 256^2 (one
+    # process's bf16 spread): the 32^2 sites of d = 40
+    ("f32_train_b8_32x32_d40", 8, 8, 1024, 1024, 40, True, False),
 ] + EDGE_CASES
 # (..., dtype): every case names the kernel family it checks
 FLASH_CASES = ([c + ("bf16",) for c in FLASH_CASES]
@@ -1423,7 +1436,10 @@ FAMILY_RUNS = ("directinversion+masactrl", "directinversion+pnp", "edit-friendly
 # families whose UNet computes in f32 on a bf16 pipeline (its layers cast the
 # weights to the f32 latents), as the JAX package's layers do
 F32_FAMILIES = ("edit-friendly-inversion+p2p",)
-FAMILY_STEPS = 50  # DDIM steps of the families' counted edits and batches
+# DDIM steps of the families' counted edits and batches: 50 until the tp and
+# w8 phases joined the script (the smoke's time; their shapes do not depend
+# on the steps, and scripts/time_torch_families.py times them at 50)
+FAMILY_STEPS = 20
 FAMILY_SHORT_RUNS = ("ddim+masactrl", "ddim+pnp")  # counted at VARIANT_STEPS
 EF_SKIP = 12  # the EF editor's default: T forward and T - 12 reverse UNet calls
 
@@ -1698,7 +1714,9 @@ def masactrl_controls_phase(pipe) -> dict:
     return rows
 
 
-EDICT_STEPS = 50  # DDIM steps of the counted edict+p2p edit (float64 carry)
+# DDIM steps of the counted edict+p2p edit (float64 carry; 50 before the tp
+# and w8 phases joined)
+EDICT_STEPS = 20
 EDICT_SHORT_STEPS = 5  # of edict+direct_forward (f32 carry)
 EDICT_BATCH_STEPS = 3  # of BatchedEDICT x4, both methods (float64 carry)
 EDICT_ROUND_TRIP_STEPS = 10  # of the strength-1.0 round trips in both precisions
@@ -1965,7 +1983,9 @@ def edict_phase(pipe) -> dict:
     return out
 
 
-INSTRUCT_STEPS = 50  # sampling steps of the counted instruction edits and the batch
+# sampling steps of the counted instruction edits and the batch (50 before
+# the tp and w8 phases joined)
+INSTRUCT_STEPS = 20
 INSTRUCTIONS = ("make the cake square", "turn the plate into glass", "put candles on the cake",
                 "make it a chocolate cake")
 
@@ -2562,7 +2582,7 @@ def _sharded_eval(calc, mapping_path: str, src_folder: str, folders: dict, rows:
 # pix2pix-zero (with its BLIP captioner) and StyleDiffusion
 # ---------------------------------------------------------------------------
 
-BLD_STEPS = 50  # DDIM steps of the counted BLD edit and batch (38 UNet calls)
+BLD_STEPS = 20  # DDIM steps of the counted BLD edit and batch (50 before the tp and w8 phases)
 P2Z_STEPS = 5  # of the counted pix2pix-zero edits and batch
 SD_STEPS = 3  # of the counted StyleDiffusion edit and batch
 SD_INNER = 3  # StyleDiffusion's inner Adam steps (the editor's default is 100)
@@ -3464,9 +3484,9 @@ def _mp_run(started, beside):
     result = beside()
     while not ctx.join(timeout=5):
         if time.perf_counter() > deadline:
-            raise AssertionError(f"the {MP_RANKS} ranks outlasted {MP_TIMEOUT_S} s")
+            raise AssertionError(f"the {len(ctx.processes)} ranks outlasted {MP_TIMEOUT_S} s")
     results = []
-    for r in range(MP_RANKS):
+    for r in range(len(ctx.processes)):
         with open(os.path.join(spec["dir"], f"rank{r}.json")) as f:
             results.append(json.load(f))
     return results, result
@@ -3751,6 +3771,459 @@ def multi_process_phase(started) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the weight-only int8 UNet (--quant w8) and the tensor-parallel axis (--tp)
+# ---------------------------------------------------------------------------
+
+W8_TIMED_STEPS = 50  # the x1 edits, float then w8: the main path's steps
+# one bf16 UNet call of the w8 UNet against the float one, relative L2 of
+# eps: the JAX package holds TINY's f32 call to 0.02; SD1.4's depth and the
+# bf16 activations add their own rounding
+W8_EPS_REL_L2 = 0.05
+TP_DIR = "build/smoke_tp"  # git-ignored; removed when the phase ends
+TP_RANKS = 2  # one tp group on the one card (gloo)
+TP_IMAGES = 2  # the sweep's images: one batch of the group
+TP_STEPS = 2  # DDIM steps of the tp sweep: its UNet shapes do not depend on them
+TP_PAIRS = 12  # seeds.json items of the training step's data (TRAIN_BATCH in the train split)
+TP_UNET_ROWS = 2  # rows of the UNet call held against one process's
+TP_F32_EPS_RTOL = 1e-4  # the f32 call split against whole: sums in another order, of max |eps|
+# the tp results in bf16 against one process's, held to this factor of one
+# process's own bf16 spread: the UNet call's and the loss's distance from
+# their f32 forms, the panels' distance between batch 1 and batch 2 (C5),
+# plus the floors
+TP_SPREAD_FACTOR = 2.0
+TP_LOSS_FLOOR_RTOL = 1e-3
+TP_PANEL_FLOOR = 2.0  # uint8 levels of mean |difference|
+
+
+def _module_bytes(module) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in list(module.parameters()) + list(module.buffers()))
+
+
+def _seeded_unet_inputs(config, device, rows: int, seed: int):
+    """Latents (rows, h, w, C) and contexts (rows, 77, D), f32, from a CPU
+    generator (the same in every process)."""
+    g = torch.Generator().manual_seed(seed)
+    s = config.unet.sample_size
+    x = torch.randn((rows, s, s, config.unet.in_channels), generator=g)
+    ctx = torch.randn((rows, config.text.max_length, config.unet.context_dim), generator=g)
+    return x.to(device), ctx.to(device)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def w8_phase(entry: dict, config=None, steps: int = ENTRY_STEPS,
+             timed_steps: int = W8_TIMED_STEPS, device: str = "cuda") -> dict:
+    """The weight-only int8 UNet (``--quant w8``, ``ops/quant.py``) at full
+    SD1.4 width in bf16 on the smoke's SD1.4 directory (left by
+    ``entry_points_phase(keep=True)``):
+
+    - ``runners.run_sweep --quant w8`` over the BATCH-image mini PIE-Bench at
+      ``steps`` (x BATCH): its UNet quantized, its launches (one batch of the
+      bf16 forward), every strip written at 512x2048x3, seconds per image
+      against the float sweep's in ``entry``;
+    - on one bf16 pipeline of the directory: one UNet call's eps float and
+      then w8 (relative L2 within W8_EPS_REL_L2), the UNet's weight bytes
+      both ways, and a counted x1 directinversion+p2p edit at
+      ``timed_steps`` float and then w8 (each after a 2-step warm-up):
+      seconds and peak memory.
+
+    ``config`` and ``device`` let a CPU rehearsal run it at TINY."""
+    from PIL import Image
+
+    from pnpinversion_tpu_torch import configs
+    from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.ops.quant import is_quantized, quantize_unet_dots
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+    from pnpinversion_tpu_torch.runners import run_sweep
+
+    t0 = time.perf_counter()
+    config = config or configs.SD14
+    ckpt, data = os.path.join(ENTRY_DIR, "sd14"), os.path.join(ENTRY_DIR, "data")
+    sweep_out = os.path.join(ENTRY_DIR, "sweep_w8")
+    _reset_counts()
+    with _CreateSpy() as spy:
+        done, t_sweep = _sync_time(lambda: run_sweep.main(
+            ["--data_path", data, "--checkpoint_dir", ckpt, "--num_ddim_steps", str(steps),
+             "--device", device, "--output_path", sweep_out, "--edit_category_list", "0", "1",
+             "--quant", "w8"]))
+    counts = _counts()
+    want_counts = {"fwd": FLASH_SITES * 2 * steps, "prep": 0, "main": 0, "convert": 0}
+    if (not is_quantized(spy.pipes[0].unet) or done["images"] != BATCH
+            or device == "cuda" and (counts != want_counts or done["batch"] != BATCH)):
+        raise AssertionError(f"w8 sweep: {done}, launches {counts}, want {want_counts}")
+    folder = os.path.join(sweep_out, "directinversion+p2p", "annotation_images")
+    strips = sorted(os.path.join(d, f) for d, _, files in os.walk(folder) for f in files)
+    if len(strips) != BATCH:
+        raise AssertionError(f"w8 sweep wrote {strips}")
+    for path in strips:
+        _check_strip_size(np.asarray(Image.open(path)), config.image_size)
+    out = {"sweep": {"images": done["images"], "batch": done["batch"], "steps": steps,
+                     "run_s": t_sweep, "load_s": spy.seconds[0],
+                     "s_per_image": (t_sweep - spy.seconds[0]) / done["images"],
+                     "float_s_per_image": entry["sweep"]["s_per_image"], "launches": counts}}
+    del spy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pipe = SDPipeline.create(config, checkpoint_dir=ckpt, device=device,
+                             num_ddim_steps=timed_steps)
+    x, ctx = _seeded_unet_inputs(config, pipe.device, 2, 77)
+    x, ctx = x.to(pipe.dtype), ctx.to(pipe.dtype)
+    editor, warm = P2PEditor(pipe), P2PEditor(_pipe_at(pipe, 2))
+    img = _random_images(4321, config.image_size)()
+    rows, eps = {}, {}
+    for mode in ("float", "w8"):
+        if mode == "w8":
+            quantize_unet_dots(pipe.unet)  # in place: the editors share the module
+        with torch.inference_mode():
+            eps[mode] = pipe.unet(x, 500, ctx)[0].float()
+        warm("directinversion+p2p", img, SRC, TAR, **EDIT_KW)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        strip, t = _sync_time(lambda: editor("directinversion+p2p", img, SRC, TAR, **EDIT_KW))
+        counts = _counts()
+        _check_strip_size(strip, config.image_size)
+        want = {"fwd": FLASH_SITES * 2 * timed_steps, "prep": 0, "main": 0, "convert": 0}
+        if device == "cuda" and counts != want:
+            raise AssertionError(f"{mode} x1 edit: launches {counts}, want {want}")
+        rows[mode] = {"edit_s": t, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "unet_weight_bytes": _module_bytes(pipe.unet), "launches": counts}
+    rel = _rel_l2(eps["w8"], eps["float"])
+    if not (torch.isfinite(eps["w8"]).all() and rel <= W8_EPS_REL_L2):
+        raise AssertionError(f"w8 eps {rel} from the float UNet's, limit {W8_EPS_REL_L2}")
+    out.update(x1=rows, steps=timed_steps, eps_rel_l2_vs_float=rel,
+               eps_rel_l2_limit=W8_EPS_REL_L2,
+               weight_bytes_ratio=rows["w8"]["unet_weight_bytes"]
+               / rows["float"]["unet_weight_bytes"],
+               phase_s=time.perf_counter() - t0)
+    del editor, warm, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("w8", json.dumps(out), flush=True)
+    return out
+
+
+def _tp_sweep_argv(spec: dict, out: str, log: str, batch: int) -> list:
+    return ["--method", "directinversion+p2p", "--data_path", spec["data"], "--output_path", out,
+            "--checkpoint_dir", spec["ckpt"], "--num_ddim_steps", str(TP_STEPS),
+            "--batch_per_device", str(batch), "--edit_category_list", "0", "1", "--run_log",
+            log, "--device", spec["device"]]
+
+
+def _tp_trainer(spec: dict, grid=None):
+    """The training runner's trainer on the smoke's SD1.4 directory (its
+    4-channel UNet widened to 8; batch TRAIN_BATCH, one microbatch, ZeRO),
+    split over ``grid``'s tp group where one is given; returns (trainer,
+    pipeline)."""
+    from pnpinversion_tpu_torch.configs import IP2P
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    cfg4 = dataclasses.replace(IP2P, unet=dataclasses.replace(IP2P.unet, in_channels=4))
+    pipe = SDPipeline.create(cfg4, seed=MP_SEED, checkpoint_dir=spec["ckpt"],
+                             device=spec["device"])
+    unet8 = tr.extend_conv_in(pipe.unet, IP2P.unet.in_channels)
+    pipe.unet = None
+    model_cfg = dataclasses.replace(pipe.config, unet=unet8.config)
+    trainer = tr.EditTrainer(model_cfg, {"vae": pipe.vae, "text": pipe.text_encoder}, unet8,
+                             tr.TrainConfig(base_lr=MP_LR, scale_lr=False, accum=1),
+                             TRAIN_BATCH, pipe.tokenize([""])[0],
+                             group=grid.dp_group if grid else None,
+                             tp_group=grid.tp_group if grid else None)
+    return trainer, pipe
+
+
+def _tp_batch(spec: dict, pipe) -> dict:
+    """One microbatch of TRAIN_BATCH rows of the pairs at 256^2, as the
+    training runner reads them (dp index 0)."""
+    from pnpinversion_tpu_torch.training.data import EditPairDataset, WeightedConcat, batches
+
+    src = WeightedConcat([EditPairDataset(spec["pairs"], split="train",
+                                          min_resize_res=TRAIN_CROP, max_resize_res=TRAIN_CROP,
+                                          crop_res=TRAIN_CROP, flip_prob=0.5)], None)
+    p = next(batches(src, TRAIN_BATCH, seed=MP_SEED, process_index=0))
+    return {"edited": p["edited"][None], "cond_image": p["cond_image"][None],
+            "ids": pipe.tokenize(p["edit"])[None]}
+
+
+def _tp_rank(rank: int, address: str, spec: dict) -> None:
+    """One of the TP_RANKS processes on the card (spawned), one tp group:
+    joins the gloo group and warms its CUDA context, waits for the phase's
+    data, then runs ``run_sweep_sharded --tp`` (counted, its gathers
+    counted), one UNet call on the sweep's split pipeline in bf16 and in f32
+    (rank 0 keeps their eps), and one trainer step split over the group
+    (counted; its peak memory); writes its numbers to TP_DIR/rank<r>.json."""
+    from pnpinversion_tpu_torch.parallel import multihost
+    from pnpinversion_tpu_torch.parallel import tensor_parallel as tpar
+    from pnpinversion_tpu_torch.runners import run_sweep_sharded
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (MP_RANKS + TP_RANKS)))
+    _record_path_shapes()
+    multihost.initialize(address, TP_RANKS, rank, "gloo", spec["device"])
+    if spec["device"] == "cuda":  # the context, cuDNN and cuBLAS, while the parent works
+        x = torch.randn(1, 8, 16, 16, device="cuda", dtype=torch.bfloat16)
+        torch.nn.functional.conv2d(x, torch.randn(8, 8, 3, 3, device=x.device, dtype=x.dtype))
+        (x.flatten(1) @ x.flatten(1).T).sum().item()
+    deadline = time.perf_counter() + MP_TIMEOUT_S
+    while not os.path.exists(spec["ready"]):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"rank {rank}: no {spec['ready']} within {MP_TIMEOUT_S} s")
+        time.sleep(0.2)
+    gathers = {"calls": 0, "bytes": 0}
+    gather = multihost.all_gather_columns
+
+    def counted(y, axis, group):
+        whole = gather(y, axis, group)
+        gathers["calls"] += 1
+        gathers["bytes"] += whole.numel() * whole.element_size()
+        return whole
+
+    multihost.all_gather_columns = counted
+    flags = ["--num_processes", str(TP_RANKS), "--process_id", str(rank),
+             "--coordinator_address", address, "--dist_backend", "gloo", "--tp", str(TP_RANKS)]
+    out = {}
+    try:
+        _reset_counts()
+        with _CreateSpy() as spy:
+            done, t = _sync_time(lambda: run_sweep_sharded.main(
+                _tp_sweep_argv(spec, spec["sweep_out"], spec["sweep_log"], TP_IMAGES) + flags))
+        out["sweep"] = {"done": done, "run_s": t, "load_s": spy.seconds, "launches": _counts(),
+                        "gathers": dict(gathers)}
+        pipe = spy.pipes[0]
+        del spy
+        x, ctx = _seeded_unet_inputs(pipe.config, pipe.device, TP_UNET_ROWS, 77)
+        out["unet_call"] = {}
+        with torch.inference_mode():
+            for name, dt in (("bf16", pipe.dtype), ("f32", torch.float32)):
+                pipe.unet(x.to(dt), 500, ctx.to(dt))  # warm-up
+                before = dict(gathers)
+                eps, t = _sync_time(lambda: pipe.unet(x.to(dt), 500, ctx.to(dt))[0])
+                out["unet_call"][name] = {"s": t, "gathers": gathers["calls"] - before["calls"],
+                                          "gathered_bytes": gathers["bytes"] - before["bytes"]}
+                if rank == 0:
+                    torch.save(eps.float().cpu(), os.path.join(spec["dir"], f"eps_{name}.pt"))
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, tpipe = _tp_trainer(spec, tpar.make_groups(TP_RANKS))
+        batch = _tp_batch(spec, tpipe)
+        _reset_counts()
+        before = dict(gathers)
+        m, t = _sync_time(lambda: trainer.train_step(batch, tr.step_generator(
+            MP_SEED, 0, trainer.device)))
+        out["train"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                        "step_s": t, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "launches": _counts(), "gathers": gathers["calls"] - before["calls"],
+                        "split_tensors": sum(a is not None for a in trainer.tp_axes)}
+    finally:
+        multihost.shutdown()
+    out["path_shapes"] = {k: sorted(v) for k, v in PATH_SHAPES.items()}
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_start(device: str = "cuda"):
+    """Starts the TP_RANKS ranks of ``tp_phase`` (spawned ``_tp_rank``s):
+    each joins its gloo group and warms its CUDA context, then waits for the
+    phase to write its data. Returns the phase's spec and the processes;
+    ``tp_stop`` ends them."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from pnpinversion_tpu_torch.parallel import multihost
+
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    spec = {"dir": TP_DIR, "ckpt": os.path.join(ENTRY_DIR, "sd14"), "device": device,
+            "data": os.path.join(TP_DIR, "data"), "pairs": os.path.join(TP_DIR, "pairs"),
+            "ready": os.path.join(TP_DIR, "ready"), "sweep_out": os.path.join(TP_DIR, "sweep"),
+            "sweep_log": os.path.join(TP_DIR, "sweep_log.jsonl")}
+    ctx = mp.start_processes(_tp_rank, args=(f"127.0.0.1:{multihost.free_port()}", spec),
+                             nprocs=TP_RANKS, join=False, start_method="spawn")
+    return spec, ctx
+
+
+def tp_stop(started) -> None:
+    """Ends the ranks that are still running and removes TP_DIR."""
+    import shutil
+
+    for p in started[1].processes:
+        if p.is_alive():
+            p.terminate()
+        p.join()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+
+
+def _tp_reference(spec: dict) -> dict:
+    """One process's runs of what the ranks run (in the parent, beside
+    them): ``run_sweep`` over the same images at batch TP_IMAGES and at 1
+    (batch 1 against batch 2 is one process's own bf16 spread, C5), the same
+    UNet call in bf16 and in f32 on the batch-2 run's pipeline, and the same
+    trainer step whole, with its loss also in f32."""
+    import dataclasses as dc
+
+    from pnpinversion_tpu_torch.runners import run_sweep
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    out = {"sweeps": {}, "eps": {}, "unet_call_s": {}}
+    for batch in (TP_IMAGES, 1):
+        dest = os.path.join(spec["dir"], f"one_x{batch}")
+        with _CreateSpy() as spy:
+            done, t = _sync_time(lambda: run_sweep.main(_tp_sweep_argv(
+                spec, dest, os.path.join(spec["dir"], f"one_x{batch}.jsonl"), batch)))
+        if done != {"images": TP_IMAGES, "batch": batch}:
+            raise AssertionError(f"one-process sweep at batch {batch}: {done}")
+        out["sweeps"][batch] = {"dir": dest, "run_s": t, "load_s": spy.seconds[0]}
+        if batch == TP_IMAGES:
+            pipe = spy.pipes[0]
+        del spy
+    x, ctx = _seeded_unet_inputs(pipe.config, pipe.device, TP_UNET_ROWS, 77)
+    with torch.inference_mode():
+        for name, dt in (("bf16", pipe.dtype), ("f32", torch.float32)):
+            pipe.unet(x.to(dt), 500, ctx.to(dt))
+            eps, out["unet_call_s"][name] = _sync_time(
+                lambda: pipe.unet(x.to(dt), 500, ctx.to(dt))[0])
+            out["eps"][name] = eps.float().cpu()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, tpipe = _tp_trainer(spec)
+    batch = _tp_batch(spec, tpipe)
+    torch.cuda.reset_peak_memory_stats()
+    draws = trainer.draw(TRAIN_BATCH, TRAIN_CROP, tr.step_generator(MP_SEED, 0, trainer.device))
+    cfg, trainer.cfg = trainer.cfg, dc.replace(trainer.cfg, dtype=torch.float32)
+    with torch.no_grad():
+        loss_f32 = float(trainer.microbatch_loss(
+            trainer.unet, torch.as_tensor(batch["edited"][0], device=trainer.device).float(),
+            torch.as_tensor(batch["cond_image"][0], device=trainer.device).float(),
+            batch["ids"][0].to(trainer.device), draws))
+    trainer.cfg = cfg
+    m, t = _sync_time(lambda: trainer.train_step(batch, tr.step_generator(MP_SEED, 0,
+                                                                         trainer.device)))
+    out["train"] = {"loss": float(m["loss"]), "loss_f32": loss_f32,
+                    "grad_norm": float(m["grad_norm"]), "step_s": t,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del trainer, tpipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _jpeg_panels(path: str, size: int) -> np.ndarray:
+    from PIL import Image
+
+    strip = np.asarray(Image.open(path).convert("RGB")).astype(np.int64)
+    return strip.reshape(size, 4, size, 3).transpose(1, 0, 2, 3)  # (panel, H, W, 3)
+
+
+def tp_phase(started, size: int = 512) -> dict:
+    """The tensor-parallel axis on the smoke's SD1.4 directory, with the
+    ranks ``tp_start`` started early: TP_RANKS processes on the one card,
+    one tp group over gloo, run ``run_sweep_sharded --tp`` over a
+    TP_IMAGES-image mini PIE-Bench at TP_STEPS (bf16, the pipeline's UNet,
+    VAE and text tower split by output columns), one UNet call in bf16 and
+    in f32, and one trainer step of TRAIN_BATCH rows at 256^2 split over the
+    group; one process runs the same beside them (``_tp_reference``). The
+    checks: every strip written once by tp index 0 and each image counted
+    once; the ranks' launches the one-process count; the f32 eps within
+    TP_F32_EPS_RTOL of one process's; the bf16 eps, the panels (mean |diff|
+    of the reconstruction and of the edit) and the loss within
+    TP_SPREAD_FACTOR of one process's own bf16 spread plus their floors.
+    ``size`` lets a CPU rehearsal run it at TINY."""
+    t0 = time.perf_counter()
+    spec = started[0]
+    _mini_pie_bench(TP_DIR, TP_IMAGES, size)
+    _pair_dataset(spec["pairs"], TP_PAIRS, TRAIN_CROP)
+    ranks, ref = _mp_run(started, lambda: _tp_reference(spec))
+    for res in ranks:
+        for key in PATH_SHAPES:
+            PATH_SHAPES[key].update(tuple(s) for s in res["path_shapes"][key])
+    want = {"fwd": FLASH_SITES * 2 * TP_STEPS, "prep": 0, "main": 0, "convert": 0}
+    for r, res in enumerate(ranks):
+        done = res["sweep"]["done"]
+        if (done != {"images": TP_IMAGES if r == 0 else 0, "images_total": TP_IMAGES,
+                     "batch": TP_IMAGES, "rank": r, "world": TP_RANKS}
+                or spec["device"] == "cuda" and res["sweep"]["launches"] != want):
+            raise AssertionError(f"rank {r}'s tp sweep: {res['sweep']}, launches want {want}")
+        train = res["train"]["launches"]
+        if spec["device"] == "cuda" and not (train["fwd"] == train["prep"] == train["main"]
+                                             == train["convert"] == TRAIN_SITES):
+            raise AssertionError(f"rank {r}'s tp training step: launches {train}")
+    events = [json.loads(line) for line in open(spec["sweep_log"])]
+    written = sorted(e["key"] for e in events if e["event"] == "image_done")
+    if written != [f"{i:09d}" for i in range(TP_IMAGES)] or [
+            (e["process_index"], e["images_total"]) for e in events
+            if e["event"] == "sweep_done"] != [(0, TP_IMAGES)]:
+        raise AssertionError(f"tp sweep log: {events}")
+    # the panels: recon and edit of each image, against one process at batch 2
+    from pnpinversion_tpu_torch.data.pie_bench import PieBenchDataset
+
+    diffs = {"tp": {"recon": [], "edit": []}, "spread": {"recon": [], "edit": []}}
+    folder = os.path.join("directinversion+p2p", "annotation_images")
+    for it in PieBenchDataset(spec["data"]).items():
+        rel = os.path.relpath(it.image_path, os.path.join(spec["data"], "annotation_images"))
+        got, two, one = (_jpeg_panels(os.path.join(d, folder, rel), size) for d in (
+            spec["sweep_out"], ref["sweeps"][TP_IMAGES]["dir"], ref["sweeps"][1]["dir"]))
+        # the text panel, and the image panel less the columns whose chroma
+        # the JPEG decoder's upsampling mixes with the next panel's
+        if not all(np.array_equal(a[0], two[0]) and np.array_equal(a[1][:, :-8], two[1][:, :-8])
+                   for a in (got, one)):
+            raise AssertionError(f"{rel}: the text or image panel differs")
+        for k, panel in (("recon", 2), ("edit", 3)):
+            diffs["tp"][k].append(float(np.abs(got[panel] - two[panel]).mean()))
+            diffs["spread"][k].append(float(np.abs(one[panel] - two[panel]).mean()))
+    eps = {name: torch.load(os.path.join(spec["dir"], f"eps_{name}.pt")) for name in ("bf16",
+                                                                                     "f32")}
+    one_eps = ref["eps"]
+    f32_err = float((eps["f32"] - one_eps["f32"]).abs().max() / one_eps["f32"].abs().max())
+    bf16_rel, bf16_spread = _rel_l2(eps["bf16"], one_eps["bf16"]), _rel_l2(one_eps["bf16"],
+                                                                           one_eps["f32"])
+    loss, one_loss = ranks[0]["train"]["loss"], ref["train"]["loss"]
+    loss_bound = (TP_SPREAD_FACTOR * abs(one_loss - ref["train"]["loss_f32"])
+                  + TP_LOSS_FLOOR_RTOL * abs(one_loss))
+    panel_bound = {k: TP_SPREAD_FACTOR * max(diffs["spread"][k]) + TP_PANEL_FLOOR
+                   for k in ("recon", "edit")}
+    out = {"ranks": TP_RANKS, "backend": "gloo", "images": TP_IMAGES, "steps": TP_STEPS,
+           "sweep_per_rank": [{k: res["sweep"][k] for k in ("run_s", "load_s", "gathers",
+                                                            "launches")}
+                              for res in ranks],
+           "unet_call": {"rows": TP_UNET_ROWS, "per_rank": [res["unet_call"] for res in ranks],
+                         "one_process_s": ref["unet_call_s"], "f32_max_err": f32_err,
+                         "f32_limit": TP_F32_EPS_RTOL, "bf16_rel_l2": bf16_rel,
+                         "bf16_limit": TP_SPREAD_FACTOR * bf16_spread,
+                         "one_process_bf16_vs_f32_rel_l2": bf16_spread},
+           "panels_mean_abs": {"tp_vs_one_process": diffs["tp"],
+                               "one_process_x1_vs_x2": diffs["spread"], "limit": panel_bound},
+           "train": {"rows": TRAIN_BATCH, "per_rank": [res["train"] for res in ranks],
+                     "one_process": ref["train"], "loss_limit": loss_bound},
+           "one_process_sweeps": {b: {k: v for k, v in row.items() if k != "dir"}
+                                  for b, row in ref["sweeps"].items()}}
+    bad = []
+    if not f32_err <= TP_F32_EPS_RTOL:
+        bad.append("f32 eps")
+    if not bf16_rel <= TP_SPREAD_FACTOR * bf16_spread:
+        bad.append("bf16 eps")
+    for k in ("recon", "edit"):
+        if not max(diffs["tp"][k]) <= panel_bound[k]:
+            bad.append(f"{k} panels")
+    if any(res["train"]["loss"] != loss for res in ranks) or not abs(loss - one_loss) <= loss_bound:
+        bad.append("loss")
+    if bad:
+        raise AssertionError(f"tp phase: {bad}: {json.dumps(out)[:3000]}")
+    out["phase_s"] = time.perf_counter() - t0
+    print("tensor_parallel", json.dumps(out), flush=True)
+    return out
+
+
 BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd.cu"
 F32_FWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_fwd_f32.cu"
 F32_BWD_SOURCE = "pnpinversion_tpu_torch/csrc/flash_attention_bwd_f32.cu"
@@ -3858,6 +4331,17 @@ def _bwd_entries(bwd: dict, launches: dict) -> list:
     return entries
 
 
+PHASE_S = {}  # seconds of each phase of ``main``, printed before the kernels line
+
+
+def _timed(phase, *args, **kwargs):
+    """``phase(*args, **kwargs)``, its seconds kept in PHASE_S under its name."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    PHASE_S[phase.__name__] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3888,51 +4372,55 @@ def main() -> int:
         if lost:
             raise AssertionError(f"ptxas: spills or serialised wgmma in {name}.cu: {lost}")
 
-    flash = kernel_phase()
-    bwd = bwd_kernel_phase()
-    f32 = f32_kernel_phase()
+    flash = _timed(kernel_phase)
+    bwd = _timed(bwd_kernel_phase)
+    f32 = _timed(f32_kernel_phase)
     _record_path_shapes()
     pipe, t_create = _sync_time(lambda: SDPipeline.create(SD14, seed=0, num_ddim_steps=50))
     assert pipe.device.type == "cuda" and pipe.dtype == torch.bfloat16
-    main_path = main_path_phase(pipe)
+    main_path = _timed(main_path_phase, pipe)
     print("main_path", json.dumps({"create_s": t_create, **main_path}), flush=True)
-    batched, batch_out = batched_phase(pipe, main_path["edit_s_per_image"])
+    batched, batch_out = _timed(batched_phase, pipe, main_path["edit_s_per_image"])
     print("batched_path", json.dumps(batched), flush=True)
-    null_text = null_text_phase(pipe)
+    null_text = _timed(null_text_phase, pipe)
     print("null_text_path", json.dumps(null_text), flush=True)
-    ddim = ddim_phase(pipe)
+    ddim = _timed(ddim_phase, pipe)
     print("ddim_path", json.dumps(ddim), flush=True)
-    variants = variants_phase(pipe)
-    batched_variants = batched_variants_phase(pipe)
-    early_stop = early_stop_phase(pipe)
+    variants = _timed(variants_phase, pipe)
+    batched_variants = _timed(batched_variants_phase, pipe)
+    early_stop = _timed(early_stop_phase, pipe)
     print("batched_null_text_early_stop", json.dumps(early_stop), flush=True)
-    families = families_phase(pipe)
-    masactrl_controls = masactrl_controls_phase(pipe)
-    edict = edict_phase(pipe)
-    pix2pix_zero = pix2pix_zero_phase(pipe)
-    stylediffusion = stylediffusion_phase(pipe)
+    families = _timed(families_phase, pipe)
+    masactrl_controls = _timed(masactrl_controls_phase, pipe)
+    edict = _timed(edict_phase, pipe)
+    pix2pix_zero = _timed(pix2pix_zero_phase, pipe)
+    stylediffusion = _timed(stylediffusion_phase, pipe)
     del pipe
     gc.collect()  # free it before the SD2.1 and f32 phases read their peak memory
     torch.cuda.empty_cache()
-    bld = bld_phase()
-    f32_path = f32_path_phase()
+    bld = _timed(bld_phase)
+    f32_path = _timed(f32_path_phase)
     print("f32_path_summary", json.dumps(f32_path), flush=True)
-    instruct = instruct_phase()
+    instruct = _timed(instruct_phase)
     print("instruct", json.dumps(instruct), flush=True)
-    training = training_phase()
+    training = _timed(training_phase)
     gc.collect()
     torch.cuda.empty_cache()
     started = mp_start()  # the ranks warm their CUDA contexts during the entry points
+    tp_started = tp_start()
     try:
-        entry = entry_points_phase(keep=True)
-        multi = multi_process_phase(started)
+        entry = _timed(entry_points_phase, keep=True)
+        multi = _timed(multi_process_phase, started)
+        w8 = _timed(w8_phase, entry)
+        tp = _timed(tp_phase, tp_started)
     finally:
         import shutil
 
         mp_stop(started)
+        tp_stop(tp_started)
         shutil.rmtree(ENTRY_DIR, ignore_errors=True)
     print("path_shapes", json.dumps(_check_path_shapes()), flush=True)
-    evaluation = eval_phase(batch_out)
+    evaluation = _timed(eval_phase, batch_out)
     print("evaluation", json.dumps(evaluation), flush=True)
 
     head = next(r for r in flash["rows"] if r["case"] == "scan_64x64")
@@ -3970,6 +4458,16 @@ def main() -> int:
     name = f"training, one-process reference: {MP_STEPS} steps of 8 rows x {MP_REF_ACCUM}"
     fwd_by_path[name] = multi["training"]["launches"]["fwd"]
     bwd_by_path[name] = multi["training"]["launches"]["main"]
+    fwd_by_path[f"run_sweep --quant w8 x{BATCH}, {ENTRY_STEPS} steps"] = (
+        w8["sweep"]["launches"]["fwd"])
+    fwd_by_path[f"{W8_TIMED_STEPS} steps: directinversion+p2p, w8"] = (
+        w8["x1"]["w8"]["launches"]["fwd"])
+    for r, row in enumerate(tp["sweep_per_rank"]):
+        fwd_by_path[f"run_sweep_sharded --tp {TP_RANKS}, rank {r}, x{TP_IMAGES}, "
+                    f"{TP_STEPS} steps"] = row["launches"]["fwd"]
+    for r, row in enumerate(tp["train"]["per_rank"]):
+        name = f"training step split over tp = {TP_RANKS}, rank {r}, {TRAIN_BATCH} rows"
+        fwd_by_path[name], bwd_by_path[name] = row["launches"]["fwd"], row["launches"]["main"]
     f32_by_path[f"run_editing_p2p, {ENTRY_RUNNER_IMAGES} images at {ENTRY_STEPS} steps"] = (
         entry["runner"]["launches"]["fwd"])
     fwd_by_path[f"{BLD_STEPS} steps: blended-latent-diffusion"] = bld["launches"]["fwd"]
@@ -4003,6 +4501,7 @@ def main() -> int:
         "shape": head["shape"], "per_case": flash["rows"]},
         *bwd_entries, *_f32_entries(f32, f32_path, f32_by_path),
     ]}), flush=True)
+    print("phase_seconds", json.dumps(PHASE_S), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,10 @@ each method's 4-panel strip under
 ``<output_path>/<method folder>/annotation_images/<relative image path>``.
 ``standard_argparser`` takes the JAX runners' flags, plus ``--device``
 (``cuda`` unless ``cpu`` is asked for; without CUDA it raises). ``--quant
-w8`` is the JAX package's weight-only int8 UNet, not ported (ROADMAP A16);
-``--profile_dir`` writes a ``torch.profiler`` trace of the first edited
-image. The JAX module's compile-cache set-up has no counterpart.
+w8`` stores the UNet's matmul weights int8 (``ops/quant.py``; without the
+flag ``PNPI_QUANT`` decides, as in the JAX package); ``--profile_dir``
+writes a ``torch.profiler`` trace of the first edited image. The JAX
+module's compile-cache set-up has no counterpart.
 """
 from __future__ import annotations
 
@@ -46,25 +47,21 @@ def standard_argparser(default_methods: Sequence[str]) -> argparse.ArgumentParse
     p.add_argument("--profile_dir", type=str, default=None,
                    help="torch.profiler trace dir (profiles the first edited image)")
     p.add_argument("--quant", type=str, default=None, choices=["none", "w8"],
-                   help="weight-only int8 UNet weights: not ported (ROADMAP A16)")
+                   help="weight-only int8 UNet weights (ops/quant.py); unset: $PNPI_QUANT")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (the default; raises without CUDA) or cpu")
     return p
 
 
 def check_args(args) -> None:
-    """Refuses what the port does not do: ``--quant w8``, and a device that
-    is not there (``resolve_device``)."""
-    if getattr(args, "quant", None) == "w8":
-        raise NotImplementedError("--quant w8 (the weight-only int8 UNet, ops/quant.py) is "
-                                  "ROADMAP A16, not ported")
+    """Refuses a device that is not there (``resolve_device``)."""
     resolve_device(getattr(args, "device", None))
 
 
 def make_pipeline(args, config):
     """The per-image runners' pipeline: f32, as the JAX runners create theirs
     (full f32 on the card), from ``--checkpoint_dir`` or random weights, on
-    ``--device``."""
+    ``--device``, w8 with ``--quant w8``."""
     import torch
 
     from pnpinversion_tpu_torch.pipeline import SDPipeline
@@ -72,7 +69,7 @@ def make_pipeline(args, config):
     check_args(args)
     return SDPipeline.create(config, num_ddim_steps=args.num_ddim_steps,
                              checkpoint_dir=args.checkpoint_dir, device=args.device,
-                             dtype=torch.float32)
+                             dtype=torch.float32, quantize=getattr(args, "quant", None))
 
 
 @contextlib.contextmanager

@@ -6,7 +6,9 @@ module with those weights. The tree is first renamed into the diffusers /
 transformers state-dict layout (Linear kernel (in, out) -> weight (out, in);
 conv HWIO -> OIHW; norm scale -> weight), an own copy of the JAX package's
 ``convert/export.py`` mapping, then loaded with ``strict=True`` so that every
-key on both sides is accounted for.
+key on both sides is accounted for. A UNet tree in the JAX w8 layout
+(``kernel_w8``, ``kernel_scale``: ``ops/quant.py``) loads into a UNet whose
+layers ``quantize_unet_dots`` swapped the same way.
 """
 from __future__ import annotations
 
@@ -27,18 +29,30 @@ from pnpinversion_tpu_torch.models.lpips import LPIPS
 from pnpinversion_tpu_torch.models.unet import UNet
 from pnpinversion_tpu_torch.models.vae import VAE
 from pnpinversion_tpu_torch.models.vit import ViT, ViTConfig
+from pnpinversion_tpu_torch.ops.quant import quantize_unet_dots
 
 StateDict = Dict[str, np.ndarray]
 
 
 def _lin(sd: StateDict, name: str, p) -> None:
-    sd[f"{name}.weight"] = np.asarray(p["kernel"]).T
+    if "kernel_w8" in p:  # the w8 layout (ops/quant.py): int8 (in, out) and its scale
+        sd[f"{name}.weight"] = np.asarray(p["kernel_w8"]).T
+        sd[f"{name}.weight_scale"] = np.asarray(p["kernel_scale"])
+    else:
+        sd[f"{name}.weight"] = np.asarray(p["kernel"]).T
     if "bias" in p:
         sd[f"{name}.bias"] = np.asarray(p["bias"])
 
 
 def _conv(sd: StateDict, name: str, p) -> None:
-    sd[f"{name}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    if "kernel_w8" in p and np.ndim(p["kernel_w8"]) == 2:  # a w8 1x1 conv: the linear layout
+        _lin(sd, name, p)
+        return
+    if "kernel_w8" in p:
+        sd[f"{name}.weight"] = np.asarray(p["kernel_w8"]).transpose(3, 2, 0, 1)
+        sd[f"{name}.weight_scale"] = np.asarray(p["kernel_scale"])
+    else:
+        sd[f"{name}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
     if "bias" in p:
         sd[f"{name}.bias"] = np.asarray(p["bias"])
 
@@ -278,10 +292,15 @@ def train_state_from_jax(state, config: UNetConfig) -> Dict[str, Any]:
             "count": counts.pop(), "step": int(np.asarray(state["step"]))}
 
 
+def _tensor(v) -> torch.Tensor:
+    """f32, or int8 for a w8 weight."""
+    v = np.asarray(v)
+    return torch.from_numpy(np.ascontiguousarray(v, dtype=np.int8 if v.dtype == np.int8
+                                                 else np.float32))
+
+
 def _load(module: torch.nn.Module, sd: StateDict) -> torch.nn.Module:
-    module.load_state_dict(
-        {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()},
-        strict=True, assign=True)
+    module.load_state_dict({k: _tensor(v) for k, v in sd.items()}, strict=True, assign=True)
     return module
 
 
@@ -298,6 +317,8 @@ def from_jax_params(params: Dict[str, Any], config):
     with torch.device("meta"):
         if isinstance(config, UNetConfig):
             module, sd = UNet(config), unet_state_dict(params)
+            if any(np.asarray(v).dtype == np.int8 for v in sd.values()):  # a w8 tree
+                quantize_unet_dots(module, convs="kernel_w8" in params["conv_in"])
         elif isinstance(config, VAEConfig):
             module, sd = VAE(config), vae_state_dict(params)
         elif isinstance(config, CLIPTextConfig):

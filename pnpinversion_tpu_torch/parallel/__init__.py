@@ -1,2 +1,3 @@
-"""Batched multi-image editing on one GPU (``sweep``), and several processes, one
-per GPU, over ``torch.distributed`` (``multihost``)."""
+"""Batched multi-image editing on one GPU (``sweep``), several processes, one
+per GPU, over ``torch.distributed`` (``multihost``), and the tensor-parallel
+axis over groups of them (``tensor_parallel``)."""

@@ -8,7 +8,8 @@ the mapping file (``process_shard``) and the file-based skip-existing
 contract handles restarts; the final counts reduce with one collective
 (``allreduce_metrics``). The trainer all-reduces its gradients in flat
 buckets (``all_reduce_``) and gathers its ZeRO-sharded update block by block
-(``all_gather_blocks_``).
+(``all_gather_blocks_``); a tensor-parallel layer gathers its output's
+column blocks (``all_gather_columns``).
 
 Where a JAX process drives all its local chips through one mesh, PyTorch maps
 one device to one process: ``launch_local`` starts N processes on this host
@@ -16,7 +17,9 @@ one device to one process: ``launch_local`` starts N processes on this host
 ``cuda:<r % device_count>``. The backend is explicit: NCCL needs one GPU per
 rank, so two ranks on one GPU use gloo, whose collectives on CUDA tensors are
 ``broadcast`` and ``all_reduce`` only (staged through the host). So every
-collective here is one of those two: a gather is a broadcast from each rank.
+collective here is one of those two, a gather being a broadcast from each
+rank, except ``all_gather_columns`` on NCCL, which is one
+``all_gather_into_tensor``.
 Every collective has the process group's timeout, so a lost rank fails the
 run instead of hanging it.
 """
@@ -207,6 +210,29 @@ def all_gather_blocks_(tensors: Sequence[torch.Tensor], axes: Sequence[int], gro
                     b.copy_(v.view(b.shape))
             n += 1
     return n
+
+
+def all_gather_columns(y: torch.Tensor, axis: int, group) -> torch.Tensor:
+    """Every rank's block of a layer's output along ``axis``, concatenated in
+    rank order (the whole output on every rank of ``group``). NCCL: one
+    ``all_gather_into_tensor``; gloo: one broadcast from each rank, of the
+    bytes (gloo's CUDA broadcast then needs no support for the dtype). The
+    blocks travel with ``axis`` last, which for a channels_last NCHW tensor
+    is its memory order (no copy), and the result keeps that layout."""
+    world_size, me = dist.get_world_size(group), dist.get_rank(group)
+    y_last = y.movedim(axis, -1).contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((world_size,) + y_last.shape, dtype=y.dtype, device=y.device)
+        dist.all_gather_into_tensor(out, y_last, group=group)
+        parts = out.unbind(0)
+    else:
+        parts = []
+        for r in range(world_size):
+            buf = y_last if r == me else torch.empty_like(y_last)
+            dist.broadcast(buf.view(torch.uint8), src=dist.get_global_rank(group, r),
+                           group=group)
+            parts.append(buf)
+    return torch.cat(parts, dim=-1).movedim(-1, axis)
 
 
 def _run_rank(process_id: int, module: str, argv: List[str], n: int, address: str) -> None:

@@ -18,6 +18,11 @@ Pattern::
 
 Images whose controller spec differs (replace or refine, blend on or off) run
 in different batches; ``group_items_by_spec`` buckets them first.
+
+Every class takes ``tp_group``: the ranks of a tensor-parallel group
+(``parallel/tensor_parallel.py``) split the pipeline's UNet, VAE and text
+tower (and StyleDiffusion's CLIP tower) by output columns once, and run the
+same images; every rank returns the whole results.
 """
 from __future__ import annotations
 
@@ -73,6 +78,7 @@ from pnpinversion_tpu_torch.inversion.ddim_inversion import (
 )
 from pnpinversion_tpu_torch.inversion.ef_ddpm import ef_forward_process, ef_reverse_process
 from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image
+from pnpinversion_tpu_torch.parallel.tensor_parallel import shard_columns_, shard_pipeline_
 from pnpinversion_tpu_torch.pipeline import SDPipeline
 from pnpinversion_tpu_torch.sampling.p2p_forward import (
     fused_direct_inversion_edit,
@@ -98,6 +104,13 @@ def pad_batch(arrays: List[np.ndarray], multiple: int) -> Tuple[np.ndarray, int]
     n = len(arrays)
     padded = list(arrays) + [arrays[-1]] * ((-n) % multiple)
     return np.stack(padded), n
+
+
+def _shard(pipe: SDPipeline, tp_group) -> SDPipeline:
+    """The pipeline, split over ``tp_group`` once where one is given."""
+    if tp_group is not None:
+        shard_pipeline_(pipe, tp_group)
+    return pipe
 
 
 def _cached_embed(obj, prompts) -> torch.Tensor:
@@ -174,8 +187,8 @@ class BatchedDirectInversionP2P:
 
     def __init__(self, pipe: SDPipeline, num_inner_steps: int = 10, proximal: str = "l0",
                  quantile: float = 0.75, recon_lr: float = 1.0, recon_t: int = 400,
-                 dilate_mask: int = 1):
-        self.pipe = pipe
+                 dilate_mask: int = 1, tp_group=None):
+        self.pipe = _shard(pipe, tp_group)
         self.num_inner_steps = num_inner_steps  # null-text's Adam inner steps
         # ProxEdit's benchmark settings: l0, quantile 0.75, inversion
         # guidance, recon_lr 1, recon_t 400
@@ -283,8 +296,9 @@ class BatchedMasaCtrl:
     plain CFG loop).
     """
 
-    def __init__(self, pipe: SDPipeline, start_step: int = 4, start_layer: int = 10):
-        self.pipe = pipe
+    def __init__(self, pipe: SDPipeline, start_step: int = 4, start_layer: int = 10,
+                 tp_group=None):
+        self.pipe = _shard(pipe, tp_group)
         self.start_step = start_step
         self.start_layer = start_layer
         self._cache: Dict[Any, Any] = {}
@@ -318,8 +332,8 @@ class BatchedPnP:
 
     METHODS = PNP_METHODS
 
-    def __init__(self, pipe: SDPipeline, steps_offset: int = 1):
-        self.pipe = pipe
+    def __init__(self, pipe: SDPipeline, steps_offset: int = 1, tp_group=None):
+        self.pipe = _shard(pipe, tp_group)
         self.schedule = make_ddim_schedule(num_steps=pipe.schedule.num_steps,
                                            steps_offset=steps_offset)
         self._cache: Dict[Any, Any] = {}
@@ -361,8 +375,8 @@ class BatchedEditFriendly:
     f32, as in the editor."""
 
     def __init__(self, pipe: SDPipeline, eta: float = 1.0, skip: int = 12,
-                 steps_offset: int = 1, seed: int = 1234):
-        self.pipe = pipe
+                 steps_offset: int = 1, seed: int = 1234, tp_group=None):
+        self.pipe = _shard(pipe, tp_group)
         self.schedule = make_ddim_schedule(num_steps=pipe.schedule.num_steps,
                                            steps_offset=steps_offset)
         self.eta = eta
@@ -406,10 +420,10 @@ class BatchedEDICT:
 
     METHODS = EDICT_METHODS
 
-    def __init__(self, pipe: SDPipeline, precision: str = "f32"):
+    def __init__(self, pipe: SDPipeline, precision: str = "f32", tp_group=None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-        self.pipe = pipe
+        self.pipe = _shard(pipe, tp_group)
         self.precision = precision
         self.schedule = make_ddim_schedule(num_steps=pipe.schedule.num_steps)
         self._cache: Dict[Any, Any] = {}
@@ -460,8 +474,9 @@ class BatchedInstruct:
 
     VARIANTS = INSTRUCT_VARIANTS
 
-    def __init__(self, pipe: SDPipeline, steps: Optional[int] = None, seed: int = 1234):
-        self.pipe = pipe
+    def __init__(self, pipe: SDPipeline, steps: Optional[int] = None, seed: int = 1234,
+                 tp_group=None):
+        self.pipe = _shard(pipe, tp_group)
         self.steps = steps if steps is not None else pipe.schedule.num_steps
         self.seed = seed
         self._cache: Dict[Any, Any] = {}
@@ -497,8 +512,9 @@ class BatchedBLD:
     single-image edit. The N images' 2 rows go through each UNet call
     together."""
 
-    def __init__(self, pipe: SDPipeline, blending_percentage: float = 0.25, seed: int = 42):
-        self.pipe = pipe
+    def __init__(self, pipe: SDPipeline, blending_percentage: float = 0.25, seed: int = 42,
+                 tp_group=None):
+        self.pipe = _shard(pipe, tp_group)
         self.blending_percentage = blending_percentage
         self.seed = seed
         self._cache: Dict[Any, Any] = {}
@@ -536,8 +552,8 @@ class BatchedPix2PixZero:
     METHODS = P2Z_METHODS
 
     def __init__(self, pipe: SDPipeline, steps_offset: int = 1, seed: int = 1234,
-                 xa_guidance: float = XA_GUIDANCE):
-        self.pipe = pipe
+                 xa_guidance: float = XA_GUIDANCE, tp_group=None):
+        self.pipe = _shard(pipe, tp_group)
         self.schedule = make_ddim_schedule(num_steps=pipe.schedule.num_steps,
                                            steps_offset=steps_offset)
         self.seed = seed
@@ -572,10 +588,12 @@ class BatchedStyleDiffusion:
 
     def __init__(self, pipe: SDPipeline, clip_vision=None, clip_vision_cfg=None,
                  num_inner_steps: int = 100, tau_v: float = TAUS[0], tau_c: float = TAUS[1],
-                 tau_s: float = TAUS[2], tau_u: float = TAUS[3]):
-        self.pipe = pipe
+                 tau_s: float = TAUS[2], tau_u: float = TAUS[3], tp_group=None):
+        self.pipe = _shard(pipe, tp_group)
         self.clip = (clip_vision if clip_vision is not None else
                      make_clip_vision(pipe.device, clip_vision_cfg or CLIP_VIT_B16))
+        if tp_group is not None:  # the JAX class places the CLIP tower split too
+            shard_columns_(self.clip, tp_group)
         self.num_inner_steps = num_inner_steps
         self.taus = (tau_v, tau_c, tau_s, tau_u)
 

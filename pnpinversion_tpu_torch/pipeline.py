@@ -15,10 +15,17 @@ modules. f32 on the card is full f32: ``create`` turns TF32 off for f32
 matrix products and cuDNN convolutions (``utils.device.use_full_f32``, for
 the process) on every pipeline it makes there, as the JAX package's f32
 paths and the CPU reference compute; bf16 work is unaffected.
+
+``quantize="w8"`` (or ``PNPI_QUANT=w8`` when ``quantize`` is None, as in the
+JAX package) stores the UNet's matmul weights int8 (``ops/quant.py``),
+after the weights are loaded and cast. ``tp_group`` is set by
+``parallel.tensor_parallel.shard_pipeline_`` on a pipeline whose modules it
+split over a tensor-parallel group.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -30,6 +37,7 @@ from pnpinversion_tpu_torch.models.clip_text import CLIPTextModel
 from pnpinversion_tpu_torch.models.layers import init_random_
 from pnpinversion_tpu_torch.models.unet import UNet, lb_resolution, num_lb_slots
 from pnpinversion_tpu_torch.models.vae import VAE
+from pnpinversion_tpu_torch.ops.quant import is_quantized, quantize_unet_dots
 from pnpinversion_tpu_torch.schedulers.ddim import DDIMSchedule, make_ddim_schedule
 from pnpinversion_tpu_torch.utils.device import resolve_device, use_full_f32
 from pnpinversion_tpu_torch.utils.tokenizer import default_tokenizer
@@ -49,6 +57,7 @@ class SDPipeline:
     schedule: DDIMSchedule
     device: torch.device
     dtype: torch.dtype
+    tp_group: Any = None
 
     @classmethod
     def create(
@@ -61,6 +70,7 @@ class SDPipeline:
         dtype: Optional[torch.dtype] = None,
         jax_params: Optional[Dict[str, Any]] = None,
         checkpoint_dir: Optional[str] = None,
+        quantize: Optional[str] = None,
     ) -> "SDPipeline":
         """Random-weight pipeline (the JAX package's init distributions, drawn
         from ``seed`` on the device); the weights of a JAX param tree with
@@ -70,7 +80,12 @@ class SDPipeline:
         ``convert.checkpoint.load_pipeline_modules``; its ``tokenizer/``
         gives the CLIP BPE tokenizer unless ``tokenizer`` is passed). On
         CUDA it turns TF32 off for the process (full f32, see the module
-        docstring)."""
+        docstring). ``quantize``: None (``PNPI_QUANT``), "none" or "w8"; any
+        other mode raises ``ValueError``. A JAX w8 tree in ``jax_params``
+        loads quantized as it is."""
+        quant = quantize or os.environ.get("PNPI_QUANT", "").lower() or None
+        if quant not in (None, "none", "w8"):
+            raise ValueError(f"unknown quantize mode {quant!r} (only 'w8', or 'none')")
         device = resolve_device(device)
         dtype = dtype or default_dtype(device)
         if device.type == "cuda":
@@ -92,6 +107,8 @@ class SDPipeline:
         for m in modules.values():
             m.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
             m.requires_grad_(False)
+        if quant == "w8" and not is_quantized(modules["unet"]):
+            quantize_unet_dots(modules["unet"])
         return cls(config=config, unet=modules["unet"], vae=modules["vae"],
                    text_encoder=modules["text"], tokenizer=tokenizer or default_tokenizer(),
                    schedule=make_ddim_schedule(num_steps=num_ddim_steps), device=device,

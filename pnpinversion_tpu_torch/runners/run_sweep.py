@@ -103,14 +103,18 @@ def _lanczos(path: str, size: int) -> np.ndarray:
 
 class PipelinedSaver:
     """Writes a chunk's strips on a worker thread while the card edits the
-    next chunk; ``flush`` waits for the last one (and raises its error)."""
+    next chunk; ``flush`` waits for the last one (and raises its error).
+    With ``write`` False it drops them (a tensor-parallel rank past tp
+    index 0, whose edits its group's first rank writes)."""
 
-    def __init__(self, size: int, logger: RunLogger, method: str):
-        self.size, self.logger, self.method = size, logger, method
+    def __init__(self, size: int, logger: RunLogger, method: str, write: bool = True):
+        self.size, self.logger, self.method, self.write = size, logger, method, write
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[concurrent.futures.Future] = None
 
     def push(self, chunk, images, recon, edit) -> None:
+        if not self.write:
+            return
         self.flush()
         self._pending = self._pool.submit(self._save, chunk, images, recon, edit)
 
@@ -141,10 +145,10 @@ def _chunks(items, batch: int):
         yield items[lo: lo + batch]
 
 
-def sweep_p2p(pipe, pending, batch, size, saver, method="directinversion+p2p"):
+def sweep_p2p(pipe, pending, batch, size, saver, method="directinversion+p2p", tp_group=None):
     from pnpinversion_tpu_torch.editors.p2p_editor import GUIDANCE_GRID
 
-    sweep = BatchedDirectInversionP2P(pipe)
+    sweep = BatchedDirectInversionP2P(pipe, tp_group=tp_group)
     for e in pending:
         blended = e["item"].blended_word
         ctrl, e["tensors"] = make_p2p_control(
@@ -174,8 +178,8 @@ def sweep_p2p(pipe, pending, batch, size, saver, method="directinversion+p2p"):
             saver.push(chunk, images, recon, edit)
 
 
-def sweep_masactrl(pipe, pending, batch, size, saver, method):
-    sweep = BatchedMasaCtrl(pipe)
+def sweep_masactrl(pipe, pending, batch, size, saver, method, tp_group=None):
+    sweep = BatchedMasaCtrl(pipe, tp_group=tp_group)
     for chunk in _chunks(pending, batch):
         images = [load_image(e["item"].image_path, size) for e in chunk]
         imgs, _ = pad_batch(images, batch)
@@ -184,8 +188,8 @@ def sweep_masactrl(pipe, pending, batch, size, saver, method):
         saver.push(chunk, images, recon, edit)
 
 
-def sweep_pnp(pipe, pending, batch, size, saver, method):
-    sweep = BatchedPnP(pipe)
+def sweep_pnp(pipe, pending, batch, size, saver, method, tp_group=None):
+    sweep = BatchedPnP(pipe, tp_group=tp_group)
     for chunk in _chunks(pending, batch):
         images = [load_image(e["item"].image_path, size) for e in chunk]
         imgs, _ = pad_batch(images, batch)
@@ -194,10 +198,10 @@ def sweep_pnp(pipe, pending, batch, size, saver, method):
         saver.push(chunk, images, recon, edit)
 
 
-def sweep_ef(pipe, pending, batch, size, saver):
+def sweep_ef(pipe, pending, batch, size, saver, tp_group=None):
     from pnpinversion_tpu_torch.editors.ef_editor import ef_control
 
-    sweep = BatchedEditFriendly(pipe)
+    sweep = BatchedEditFriendly(pipe, tp_group=tp_group)
     for e in pending:
         ctrl, e["tensors"] = ef_control(pipe, [e["item"].source_prompt, e["item"].target_prompt],
                                         sweep.schedule.num_steps)
@@ -212,10 +216,10 @@ def sweep_ef(pipe, pending, batch, size, saver):
             saver.push(chunk, images, recon, edit)
 
 
-def sweep_bld(pipe, pending, batch, size, saver):
+def sweep_bld(pipe, pending, batch, size, saver, tp_group=None):
     from pnpinversion_tpu_torch.editors.bld_editor import latent_mask
 
-    sweep = BatchedBLD(pipe)
+    sweep = BatchedBLD(pipe, tp_group=tp_group)
     for chunk in _chunks(pending, batch):
         # BLD resizes without the crop (run_editing_blended_latent_diffusion.py:58-60)
         images = [np.array(Image.open(e["item"].image_path).resize(
@@ -228,10 +232,10 @@ def sweep_bld(pipe, pending, batch, size, saver):
         saver.push(chunk, images, np.zeros_like(edit), edit)
 
 
-def sweep_edict(pipe, pending, batch, size, saver, method):
+def sweep_edict(pipe, pending, batch, size, saver, method, tp_group=None):
     from pnpinversion_tpu_torch.control.edict_p2p import make_edict_p2p_tensors
 
-    sweep = BatchedEDICT(pipe, precision="df64")
+    sweep = BatchedEDICT(pipe, precision="df64", tp_group=tp_group)
     for e in pending:
         e["tensors"] = make_edict_p2p_tensors(e["item"].source_prompt, e["item"].target_prompt,
                                               pipe.tokenizer, pipe.config.text.max_length,
@@ -245,8 +249,8 @@ def sweep_edict(pipe, pending, batch, size, saver, method):
         saver.push(chunk, images, recon, edit)
 
 
-def sweep_instruct(pipe, pending, batch, size, saver, method):
-    sweep = BatchedInstruct(pipe)
+def sweep_instruct(pipe, pending, batch, size, saver, method, tp_group=None):
+    sweep = BatchedInstruct(pipe, tp_group=tp_group)
     for chunk in _chunks(pending, batch):
         # the instruction editors resize with Lanczos, no crop
         # (run_editing_instructpix2pix.py:115-118)
@@ -257,7 +261,7 @@ def sweep_instruct(pipe, pending, batch, size, saver, method):
         saver.push(chunk, images, np.zeros_like(edit), edit)
 
 
-def sweep_p2z(pipe, pending, batch, size, saver, method, args):
+def sweep_p2z(pipe, pending, batch, size, saver, method, args, tp_group=None):
     from pnpinversion_tpu_torch.runners.run_editing_pix2pix_zero import (
         load_captioner,
         load_captions,
@@ -265,7 +269,7 @@ def sweep_p2z(pipe, pending, batch, size, saver, method, args):
 
     captions = load_captions(args.caption_file)
     captioner = load_captioner(args.checkpoint_dir, pipe.device)
-    sweep = BatchedPix2PixZero(pipe)
+    sweep = BatchedPix2PixZero(pipe, tp_group=tp_group)
     for chunk in _chunks(pending, batch):
         images = [_lanczos(e["item"].image_path, size) for e in chunk]
         imgs, _ = pad_batch(images, batch)
@@ -286,10 +290,11 @@ def sweep_p2z(pipe, pending, batch, size, saver, method, args):
         saver.push(chunk, images, recon, edit)
 
 
-def sweep_stylediffusion(pipe, pending, batch, size, saver):
+def sweep_stylediffusion(pipe, pending, batch, size, saver, tp_group=None):
     from pnpinversion_tpu_torch.editors.stylediffusion_editor import stylediffusion_p2p
 
-    sweep = BatchedStyleDiffusion(pipe)  # 100 inner steps, as the reference runs it
+    # 100 inner steps, as the reference runs it
+    sweep = BatchedStyleDiffusion(pipe, tp_group=tp_group)
     for e in pending:
         # the reference passes no blend words and no equalizer
         # (run_editing_stylediffusion.py:249-258)
@@ -361,41 +366,45 @@ def sweep_pipeline(args, method: str, device=None) -> SDPipeline:
     """The method's pipeline: BLD runs SD2.1-base
     (run_editing_blended_latent_diffusion.py:43), the instruction editors the
     8-channel UNet, everything else SD1.4; bf16 on the card, f32 on the CPU;
-    the step-count ablations at their own steps."""
+    the step-count ablations at their own steps; w8 with ``--quant w8``."""
     config = (SD21 if method == "blended-latent-diffusion"
               else IP2P if method.startswith("instruct") else SD14)
     steps = BatchedDirectInversionP2P.step_ablation_steps(method) or args.num_ddim_steps
     return SDPipeline.create(config, num_ddim_steps=steps, checkpoint_dir=args.checkpoint_dir,
-                             device=args.device if device is None else device)
+                             device=args.device if device is None else device,
+                             quantize=args.quant)
 
 
-def run_sweep(args, method: str, pipe, pending, logger: RunLogger) -> int:
+def run_sweep(args, method: str, pipe, pending, logger: RunLogger, tp_group=None,
+              write: bool = True) -> int:
     """Edits ``pending`` with the method's batched class, ``--batch_per_device``
-    images a call (auto when 0), the strips written on a worker thread.
-    Returns the batch."""
+    images a call (auto when 0), the strips written on a worker thread (none
+    without ``write``); the pipeline split over ``tp_group`` where one is
+    given. Returns the batch."""
     batch = args.batch_per_device if args.batch_per_device > 0 else auto_batch(method,
                                                                                pipe.device)
     size = pipe.config.image_size
-    saver = PipelinedSaver(size, logger, method)
+    saver = PipelinedSaver(size, logger, method, write)
+    common = (pipe, pending, batch, size, saver)
     try:
         if BatchedDirectInversionP2P.supports(method):
-            sweep_p2p(pipe, pending, batch, size, saver, method)
+            sweep_p2p(*common, method, tp_group)
         elif method.endswith("masactrl"):
-            sweep_masactrl(pipe, pending, batch, size, saver, method)
+            sweep_masactrl(*common, method, tp_group)
         elif method == "edit-friendly-inversion+p2p":
-            sweep_ef(pipe, pending, batch, size, saver)
+            sweep_ef(*common, tp_group)
         elif method == "blended-latent-diffusion":
-            sweep_bld(pipe, pending, batch, size, saver)
+            sweep_bld(*common, tp_group)
         elif method.startswith("edict"):
-            sweep_edict(pipe, pending, batch, size, saver, method)
+            sweep_edict(*common, method, tp_group)
         elif method.startswith("instruct"):
-            sweep_instruct(pipe, pending, batch, size, saver, method)
+            sweep_instruct(*common, method, tp_group)
         elif method.endswith("pix2pix-zero"):
-            sweep_p2z(pipe, pending, batch, size, saver, method, args)
+            sweep_p2z(*common, method, args, tp_group)
         elif method == "stylediffusion+p2p":
-            sweep_stylediffusion(pipe, pending, batch, size, saver)
+            sweep_stylediffusion(*common, tp_group)
         else:
-            sweep_pnp(pipe, pending, batch, size, saver, method)
+            sweep_pnp(*common, method, tp_group)
     finally:
         saver.close()
     return batch

@@ -22,8 +22,16 @@ total. A process builds its pipeline only when it has items to edit.
 need gloo (NCCL refuses two ranks on one device). ``--device cpu`` with
 gloo runs the sweep on the host. ``--n_devices`` without
 ``--num_processes`` starts that many local processes (``spawn``); with
-``--num_processes`` each process is one rank. ``--tp > 1`` (tensor
-parallelism over a (dp, tp) mesh) is not ported (ROADMAP A17).
+``--num_processes`` each process is one rank.
+
+``--tp T`` (T dividing the W processes) is the JAX runner's tensor-parallel
+axis (``parallel/tensor_parallel.py``): W / T groups of T ranks, each group's
+ranks splitting the pipeline's layers by output columns and editing the same
+images. The items are sharded over the dp index (the group), the batch is
+``--batch_per_device`` images a group, so the images in flight scale with
+W / T only, and only a group's tp index 0 writes the strips and the log; the
+final reduction counts each image once. ``--tp`` with one process (on the
+CPU too) raises.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import numpy as np
 
 from pnpinversion_tpu_torch.cli import check_args
 from pnpinversion_tpu_torch.parallel import multihost
+from pnpinversion_tpu_torch.parallel.tensor_parallel import make_groups
 from pnpinversion_tpu_torch.runners import run_sweep
 from pnpinversion_tpu_torch.utils.observability import RunLogger
 
@@ -44,7 +53,8 @@ def add_process_args(parser) -> None:
     parser.add_argument("--n_devices", type=int, default=None,
                         help="local processes to start, one per GPU (without --num_processes)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel factor: not ported (ROADMAP A17), 1 only")
+                        help="tensor-parallel factor: ranks a group that splits the layers "
+                             "by output columns (it must divide the processes)")
     parser.add_argument("--num_processes", type=int, default=None,
                         help="the number of processes of the run (ranks)")
     parser.add_argument("--process_id", type=int, default=None, help="this process's rank")
@@ -56,18 +66,21 @@ def add_process_args(parser) -> None:
 
 
 def check_process_args(args) -> bool:
-    """Refuses ``--tp > 1``; returns whether this call starts ``--n_devices``
-    local processes (``--n_devices`` > 1 without ``--num_processes``)."""
-    if args.tp > 1:
-        raise NotImplementedError("--tp > 1 (the UNet's matrices sharded over a (dp, tp) "
-                                  "mesh) is ROADMAP A17, not ported")
+    """Refuses a ``--tp`` that does not divide the processes (the flags', or
+    the group's this process already belongs to; one process included);
+    returns whether this call starts ``--n_devices`` local processes
+    (``--n_devices`` > 1 without ``--num_processes``)."""
+    world = args.num_processes or args.n_devices or multihost.world()
+    if args.tp < 1 or world % args.tp:
+        raise ValueError(f"--tp {args.tp} does not divide the {world} processes (--n_devices "
+                         f"or --num_processes)")
     return args.num_processes is None and (args.n_devices or 1) > 1
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
-    """Returns {"images": this process's edits, "images_total": all
-    processes', "batch", "rank", "world"}; None where it started local
-    processes."""
+    """Returns {"images": this process's edits (its group's at tp index 0,
+    0 at the others), "images_total": all groups', "batch", "rank",
+    "world"}; None where it started local processes."""
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = run_sweep.sweep_argparser()
     add_process_args(parser)
@@ -83,24 +96,29 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
                                  args.dist_backend, device)
     try:
         rank, world = multihost.rank(), multihost.world()
-        logger = RunLogger(args.run_log)
-        items = multihost.process_shard(run_sweep.sweep_items(args), rank, world)
+        grid = make_groups(args.tp)
+        writer = grid.tp_index == 0  # a group's first rank writes its strips and the log
+        logger = RunLogger(args.run_log if writer else None)
+        items = multihost.process_shard(run_sweep.sweep_items(args), grid.dp_index, grid.dp)
         pending = run_sweep.pending_items(args, method, logger, items)
         batch = 0
         if pending:
             pipe = run_sweep.sweep_pipeline(args, method, device)
-            batch = run_sweep.run_sweep(args, method, pipe, pending, logger)
+            batch = run_sweep.run_sweep(args, method, pipe, pending, logger, grid.tp_group,
+                                        write=writer)
             del pipe
         else:
             print("nothing to do", flush=True)
-        # every process reaches this collective, with or without work
-        mean = multihost.allreduce_metrics(np.array([float(len(pending))]), 1)
+        # every process reaches this collective, with or without work; a
+        # group's images count once
+        edited = len(pending) if writer else 0
+        mean = multihost.allreduce_metrics(np.array([float(edited)]), 1)
         total = int(round(float(mean[0]) * world))
-        logger.log("sweep_done", images_total=total, images=len(pending), method=method,
+        logger.log("sweep_done", images_total=total, images=edited, method=method,
                    process_index=rank, process_count=world)
-        print(json.dumps({"sweep_done": total, "images": len(pending), "batch": batch,
+        print(json.dumps({"sweep_done": total, "images": edited, "batch": batch,
                           "rank": rank, "world": world}), flush=True)
-        return {"images": len(pending), "images_total": total, "batch": batch, "rank": rank,
+        return {"images": edited, "images_total": total, "batch": batch, "rank": rank,
                 "world": world}
     finally:
         if owned:

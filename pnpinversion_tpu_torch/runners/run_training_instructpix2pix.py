@@ -6,7 +6,7 @@ of ``runners/run_training_instructpix2pix.py``.
         --data_path pairs --output_dir run [--batch_per_step 32] \\
         [--accumulate_grad_batches 4] [--crop_res 256] [--remat] [--resume] \\
         [--n_devices N | --num_processes W --process_id R --coordinator_address H:P] \\
-        [--dist_backend nccl|gloo] [--no_zero]
+        [--dist_backend nccl|gloo] [--no_zero] [--tp T]
 
 Data: one or more ip2p seeds.json dataset directories (``--data_path``,
 repeatable, with ``--data_weight`` mixing them as InstructDiffusion does).
@@ -28,8 +28,13 @@ is the global batch, each rank reads ``batch_per_step / W`` items a
 microbatch from its own stream, the gradients are all-reduced and Adam's
 moments are sharded over the ranks (ZeRO-1, unless ``--no_zero``); the
 learning rate scales with W. Only rank 0 writes the log and the checkpoints;
-every rank prints its own peak memory. ``--tp > 1`` is not ported (ROADMAP
-A17).
+every rank prints its own peak memory. ``--tp T`` (T dividing W) makes
+W / T data-parallel groups of T tensor-parallel ranks that split the UNet's
+layers by output columns (``parallel/tensor_parallel.py``): the data, the
+gradient all-reduce, ZeRO and the learning rate's scale go over the W / T
+groups, ``--batch_per_step`` must divide by W / T, and a checkpoint of any
+(W, T) resumes at any other. There is no ``--quant``, as in the JAX runner:
+the trainer refuses a w8 UNet.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import numpy as np
 import torch
 
 from pnpinversion_tpu_torch.parallel import multihost
+from pnpinversion_tpu_torch.parallel.tensor_parallel import make_groups
 from pnpinversion_tpu_torch.runners.run_sweep_sharded import add_process_args, check_process_args
 
 
@@ -115,8 +121,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 
 def _train(args, device: torch.device) -> None:
-    import torch.distributed as dist
-
     from pnpinversion_tpu_torch.configs import IP2P
     from pnpinversion_tpu_torch.pipeline import SDPipeline
     from pnpinversion_tpu_torch.training.data import EditPairDataset, WeightedConcat, batches
@@ -129,9 +133,10 @@ def _train(args, device: torch.device) -> None:
     from pnpinversion_tpu_torch.utils.observability import RunLogger
 
     rank, world = multihost.rank(), multihost.world()
-    if args.batch_per_step % world:
+    grid = make_groups(args.tp)
+    if args.batch_per_step % grid.dp:
         raise ValueError(f"--batch_per_step {args.batch_per_step} is not a multiple of the "
-                         f"{world} processes")
+                         f"{grid.dp} data-parallel groups")
     config = IP2P
     if args.checkpoint_dir is not None:  # the UNet as the checkpoint has it, 4 or 8 channels
         from pnpinversion_tpu_torch.convert.checkpoint import checkpoint_in_channels
@@ -155,8 +160,8 @@ def _train(args, device: torch.device) -> None:
         dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32)
     null_ids = pipe.tokenize([""])[0]
     trainer = EditTrainer(model_cfg, {"vae": pipe.vae, "text": pipe.text_encoder}, unet, cfg,
-                          args.batch_per_step, null_ids,
-                          group=dist.group.WORLD if dist.is_initialized() else None)
+                          args.batch_per_step, null_ids, group=grid.dp_group,
+                          tp_group=grid.tp_group)
     pipe.unet = unet = None  # the trainer holds its own f32 copies: free the others
     if args.resume:
         trainer.restore(directory=args.output_dir)
@@ -170,7 +175,8 @@ def _train(args, device: torch.device) -> None:
                                args.data_weight)
     val_src = WeightedConcat([dataset(p, "val", 0.0) for p in args.data_path], args.data_weight)
     val_every = args.val_every if len(val_src) > 0 else 0
-    A, B = args.accumulate_grad_batches, args.batch_per_step // world  # this rank's rows
+    # this group's rows, read by each of its ranks
+    A, B = args.accumulate_grad_batches, args.batch_per_step // grid.dp
 
     def device_batch(stream):
         """A * B host items -> {edited, cond_image: (A, B, H, W, 3), ids: (A, B, 77)}."""
@@ -181,8 +187,8 @@ def _train(args, device: torch.device) -> None:
 
     os.makedirs(args.output_dir, exist_ok=True)
     logger = RunLogger(os.path.join(args.output_dir, "train_log.jsonl") if rank == 0 else None)
-    train_stream = batches(train_src, B, seed=args.seed, process_index=rank)
-    val_stream = batches(val_src, B, seed=args.seed + 1, process_index=rank)
+    train_stream = batches(train_src, B, seed=args.seed, process_index=grid.dp_index)
+    val_stream = batches(val_src, B, seed=args.seed + 1, process_index=grid.dp_index)
     cuda = trainer.device.type == "cuda"
     start = trainer.step
     t0 = time.time()

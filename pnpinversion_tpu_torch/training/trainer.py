@@ -43,12 +43,22 @@ keeps Adam's moments for its block of each tensor only (``zero_partition``:
 the largest axis W divides, else the whole tensor on every rank), updates
 that block, and every rank's blocks are gathered into every rank's
 parameters (a broadcast from each rank); the EMA stays whole on every rank. The learning rate scales with
-n_dp = W. The tensor-parallel axis is not ported (ROADMAP A17).
+n_dp = W.
+
+With ``tp_group`` (the tensor-parallel axis, ``parallel/tensor_parallel.py``:
+``group`` is then this rank's dp group) the UNet's layers are split by output
+columns over the tp group, as the JAX trainer's ``param_shardings``: the
+parameters, the EMA and Adam's moments hold this rank's column blocks, ZeRO
+partitions those local tensors over dp, the gradients are all-reduced over
+dp only (the tp ranks of a group take the same rows and compute the same
+replicated gradients), the grad norm sums the split blocks' squares over tp,
+and the learning rate scales with n_dp.
 
 Checkpoints are ``torch.save`` files ``<dir>/step_<n:08d>.pt`` of the whole
-state at any W (the moments gathered; rank 0 writes), and a checkpoint of
-any W restores at any W. Reading the JAX trainer's orbax checkpoints is not
-ported (``convert.train_state_from_jax`` carries a live JAX state across).
+state at any (dp, tp) (the blocks gathered; rank 0 writes), and a checkpoint
+of any (dp, tp) restores at any other. Reading the JAX trainer's orbax
+checkpoints is not ported (``convert.train_state_from_jax`` carries a live
+JAX state across).
 """
 from __future__ import annotations
 
@@ -65,7 +75,9 @@ from pnpinversion_tpu_torch.configs import StableDiffusionConfig
 from pnpinversion_tpu_torch.models.clip_text import CLIPTextModel
 from pnpinversion_tpu_torch.models.unet import UNet
 from pnpinversion_tpu_torch.models.vae import VAE
+from pnpinversion_tpu_torch.ops.quant import is_quantized
 from pnpinversion_tpu_torch.parallel import multihost
+from pnpinversion_tpu_torch.parallel.tensor_parallel import shard_columns_, tp_axes
 from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
 
 F32 = np.float32
@@ -226,25 +238,39 @@ class EditTrainer:
     ``count`` (Adam's and the schedule's) and ``step``. ``frozen``: {"vae":
     VAE, "text": CLIPTextModel}, used as they are (a bf16 pipeline's modules
     compute in bf16 on bf16 inputs). ``batch_per_step`` is the global batch
-    of a microbatch, of which each rank takes ``batch_per_step / W`` rows."""
+    of a microbatch, of which each dp rank takes ``batch_per_step / W`` rows
+    (W the dp group's size). With ``tp_group`` the UNet and the state are
+    split by output columns over it (the module docstring)."""
 
     def __init__(self, model_config: StableDiffusionConfig, frozen: Dict[str, torch.nn.Module],
-                 unet: UNet, cfg: TrainConfig, batch_per_step: int, null_ids, group=None):
+                 unet: UNet, cfg: TrainConfig, batch_per_step: int, null_ids, group=None,
+                 tp_group=None):
         self.config = model_config
         self.cfg = cfg
         self.group = group
         self.world = dist.get_world_size(group) if group is not None else 1
         self.rank = dist.get_rank(group) if group is not None else 0
+        self.tp_group = tp_group
+        self.tp = dist.get_world_size(tp_group) if tp_group is not None else 1
+        self.tp_rank = dist.get_rank(tp_group) if tp_group is not None else 0
         if batch_per_step % self.world:
             raise ValueError(f"batch_per_step {batch_per_step} is not a multiple of the "
                              f"{self.world} ranks")
+        if is_quantized(unet):
+            raise ValueError("the trainer trains a float UNet: w8 (ops/quant.py) is for "
+                             "inference")
         self.vae: VAE = frozen["vae"]
         self.text: CLIPTextModel = frozen["text"]
         self._lr = lambda_linear_lr(cfg, self.world, batch_per_step)
         self.unet = _f32_copy(unet).requires_grad_(True)
         self.ema = _f32_copy(unet).requires_grad_(False)
+        if tp_group is not None:
+            shard_columns_(self.unet, tp_group)
+            shard_columns_(self.ema, tp_group)
         self.device = self.unet.conv_in.weight.device
         self.names = [n for n, _ in self.unet.named_parameters()]
+        axes = tp_axes(self.unet)
+        self.tp_axes = [axes[n] for n in self.names]
         self.params = [p for _, p in self.unet.named_parameters()]
         ema = dict(self.ema.named_parameters())
         self.ema_params = [ema[n] for n in self.names]
@@ -345,7 +371,7 @@ class EditTrainer:
                 multihost.all_reduce_(grads + [loss], self.group)
             torch._foreach_div_(grads, n * self.world)
             loss = loss / (n * self.world)
-            gnorm = global_norm(grads)
+            gnorm = self._grad_norm(grads)
             adamw_update_([self._own(p, a) for p, a in zip(self.params, self.parts)],
                           [self._own(g, a) for g, a in zip(grads, self.parts)],
                           self.mu, self.nu, self.count, self._lr(self.count), self.cfg, gnorm)
@@ -359,6 +385,17 @@ class EditTrainer:
             torch._foreach_mul_(self.ema_params, float(d))
             torch._foreach_add_(self.ema_params, self.params, alpha=float(F32(1.0) - d))
         return {"loss": loss, "grad_norm": gnorm}
+
+    def _grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole gradients: the split tensors' blocks'
+        squares summed over the tp group."""
+        if self.tp_group is None:
+            return global_norm(grads)
+        split = [g for g, a in zip(grads, self.tp_axes) if a is not None]
+        whole = [g for g, a in zip(grads, self.tp_axes) if a is None]
+        sq = global_norm(split).square()
+        multihost.all_reduce_([sq], self.tp_group)
+        return torch.sqrt(sq + global_norm(whole).square())
 
     def _assemble_params(self) -> None:
         """Every rank's updated blocks into every rank's parameters
@@ -384,49 +421,58 @@ class EditTrainer:
         return self._lr(self.step if step is None else step)
 
     # ---------------------------------------------------------------- state
-    def _whole_moments(self, keep: bool = True) -> Dict[str, Dict[str, torch.Tensor]]:
-        """mu and nu by name, whole: the rank's own tensors where they are
-        whole, else every rank's blocks gathered bucket by bucket (a
-        collective) and kept on the host (not kept without ``keep``: a rank
-        that only takes part in the gather)."""
-        out: Dict[str, Dict[str, torch.Tensor]] = {"mu": {}, "nu": {}}
-        split = []
-        for key, moments in (("mu", self.mu), ("nu", self.nu)):
-            for name, p, m, a in zip(self.names, self.params, moments, self.parts):
-                if a is None:
-                    out[key][name] = m
-                else:
-                    split.append((key, name, p, m, a))
-        while split:  # one bucket of whole tensors at a time on the card
+    def _whole(self, tensors: Sequence[torch.Tensor], dp_axes: Sequence[Optional[int]],
+               keep: bool = True) -> Dict[str, Optional[torch.Tensor]]:
+        """This rank's tensors (one per parameter, each its ZeRO block along
+        ``dp_axes`` of its tp block along ``tp_axes``) whole, by name: as
+        they are where both are whole, else every rank's blocks gathered
+        over dp, then over tp, bucket by bucket (collectives) and kept on
+        the host (not kept without ``keep``: a rank that only takes part in
+        the gathers)."""
+        out = dict(zip(self.names, tensors))
+        todo = [i for i, (a, b) in enumerate(zip(dp_axes, self.tp_axes))
+                if a is not None or b is not None]
+        while todo:  # one bucket of whole tensors at a time on the card
             bucket, size = [], 0
-            while split and (not bucket or size + split[0][2].numel() * 4
-                             <= multihost.BUCKET_BYTES):
-                bucket.append(split.pop(0))
-                size += bucket[-1][2].numel() * 4
-            whole = []
-            for _, _, p, m, a in bucket:
-                w = torch.empty(p.shape, dtype=torch.float32, device=self.device)
-                self._own(w, a).copy_(m)
-                whole.append(w)
-            multihost.all_gather_blocks_(whole, [a for *_, a in bucket], self.group)
-            for (key, name, *_), w in zip(bucket, whole):
-                if keep:
-                    out[key][name] = w.cpu()
+            while todo and (not bucket or size + self.params[todo[0]].numel() * self.tp * 4
+                            <= multihost.BUCKET_BYTES):
+                bucket.append(todo.pop(0))
+                size += self.params[bucket[-1]].numel() * self.tp * 4
+            cur = [tensors[i] for i in bucket]
+            for axes, world, rank, group in ((dp_axes, self.world, self.rank, self.group),
+                                             (self.tp_axes, self.tp, self.tp_rank,
+                                              self.tp_group)):
+                sel = [k for k, i in enumerate(bucket) if axes[i] is not None]
+                for k in sel:
+                    shape = list(cur[k].shape)
+                    shape[axes[bucket[k]]] *= world
+                    w = torch.empty(shape, dtype=cur[k].dtype, device=cur[k].device)
+                    multihost.block(w, axes[bucket[k]], rank, world).copy_(cur[k])
+                    cur[k] = w
+                if sel:
+                    multihost.all_gather_blocks_([cur[k] for k in sel],
+                                                 [axes[bucket[k]] for k in sel], group)
+            for i, t in zip(bucket, cur):
+                out[self.names[i]] = t.cpu() if keep else None
         return out
 
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self, keep: bool = True) -> Dict[str, Any]:
         """The whole training state, by parameter name (a collective when
-        the moments are sharded: every rank calls it)."""
-        moments = self._whole_moments()
-        return {"params": {n: p.detach() for n, p in zip(self.names, self.params)},
-                "ema": {n: p.detach() for n, p in zip(self.names, self.ema_params)},
-                "mu": moments["mu"], "nu": moments["nu"], "count": self.count, "step": self.step}
+        the moments or the layers are split: every rank calls it; ``keep``
+        False where a rank only takes part)."""
+        whole = [None] * len(self.names)
+        return {"params": self._whole([p.detach() for p in self.params], whole, keep),
+                "ema": self._whole([p.detach() for p in self.ema_params], whole, keep),
+                "mu": self._whole(self.mu, self.parts, keep),
+                "nu": self._whole(self.nu, self.parts, keep),
+                "count": self.count, "step": self.step}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Copies a whole state (``state_dict``'s layout, from any number of
         ranks; tensors or numpy arrays, e.g. ``convert.train_state_from_jax``'s)
-        into this trainer: the moments' blocks this rank owns."""
+        into this trainer: the blocks this rank owns (its tp column blocks,
+        and of the moments its ZeRO blocks of those)."""
         for key, dst, parts in (("params", self.params, None), ("ema", self.ema_params, None),
                                 ("mu", self.mu, self.parts), ("nu", self.nu, self.parts)):
             src = state[key]
@@ -437,22 +483,25 @@ class EditTrainer:
                 v = src[name]
                 v = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                     np.array(v, dtype=np.float32))
+                v = multihost.block(v, self.tp_axes[i], self.tp_rank, self.tp)
                 t.copy_(self._own(v, parts[i]) if parts is not None else v)
         self.count, self.step = int(state["count"]), int(state["step"])
 
     def save(self, directory: str) -> str:
         """Writes the whole state to ``<directory>/step_<n:08d>.pt`` (rank 0
-        writes; a collective: every rank calls it, and it returns when the
-        file is complete); returns its path."""
+        of both groups writes; a collective: every rank calls it, and it
+        returns when the file is complete); returns its path."""
         path = os.path.join(os.path.abspath(directory), f"step_{self.step:08d}.pt")
-        if self.rank == 0:
+        writer = self.rank == 0 and self.tp_rank == 0
+        state = self.state_dict(keep=writer)  # every rank takes part in the gathers
+        if writer:
             os.makedirs(directory, exist_ok=True)
-            torch.save(self.state_dict(), path + ".tmp")
+            torch.save(state, path + ".tmp")
             os.replace(path + ".tmp", path)
-        else:
-            self._whole_moments(keep=False)  # this rank's part of the gather
-        if self.group is not None:
-            dist.barrier(self.group)
+        del state
+        for group in (self.tp_group, self.group):
+            if group is not None:
+                dist.barrier(group)
         return path
 
     def restore(self, path: Optional[str] = None, directory: Optional[str] = None) -> bool:

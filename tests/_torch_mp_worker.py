@@ -7,7 +7,9 @@ ranks run the port alone; the tests import ``tiny_create`` from here.
 
 Scenarios: ``shard`` (process_shard and allreduce_metrics), ``sweep``
 (``runners.run_sweep_sharded`` at TINY), ``train`` (``EditTrainer`` steps
-with ZeRO and without), ``train_cli`` (the training runner at TINY). ``launch`` starts two ``shard`` ranks through
+with ZeRO and without), ``train_cli`` (the training runner at TINY), ``tp``
+(the tensor-parallel sweep, w8 included, and a training step over a (dp, tp)
+grid). ``launch`` starts two ``shard`` ranks through
 ``multihost.launch_local``. CONFIG is a JSON file of the scenario's
 arguments; each rank writes its results under ``out``.
 """
@@ -29,9 +31,10 @@ TIMEOUT_S = 60.0  # a lost rank fails the test's run well inside its limit
 
 
 def tiny_create(cls, config=None, num_ddim_steps=50, checkpoint_dir=None, device=None,
-                dtype=None, **kw):
+                dtype=None, quantize=None, jax_params=None, **kw):
     """``SDPipeline.create`` at TINY (the config's UNet input channels kept),
-    on the CPU in f32, with the port's own random weights from seed 0."""
+    on the CPU in f32, with the port's own random weights from seed 0 (or
+    ``jax_params``), w8 with ``quantize``."""
     import dataclasses
 
     from pnpinversion_tpu_torch.configs import TINY
@@ -41,7 +44,7 @@ def tiny_create(cls, config=None, num_ddim_steps=50, checkpoint_dir=None, device
     cfg = dataclasses.replace(TINY, unet=dataclasses.replace(
         TINY.unet, in_channels=config.unet.in_channels))
     return _ORIG_CREATE(cls, cfg, seed=0, num_ddim_steps=num_ddim_steps, device="cpu",
-                        dtype=torch.float32)
+                        dtype=torch.float32, quantize=quantize, jax_params=jax_params)
 
 
 def _shard(cfg, rank, world):
@@ -119,7 +122,51 @@ def _train_cli(cfg, rank, world):
     return {}
 
 
-SCENARIOS = {"shard": _shard, "sweep": _sweep, "train": _train, "train_cli": _train_cli}
+def _tp(cfg, rank, world):
+    """Over a (world / tp, tp) grid: ``runners.run_sweep_sharded`` with
+    ``--tp`` on the weights ``params``, float and w8; then, from the one-rank
+    checkpoint ``start``, one trainer step of the global ``batch`` with the
+    global ``draws`` (ZeRO on), saved under ``out``/tp; then one more
+    microbatch's backward, whose replicated gradients each rank hashes."""
+    import functools
+    import hashlib
+
+    from pnpinversion_tpu_torch.parallel.tensor_parallel import make_groups
+    from pnpinversion_tpu_torch.runners import run_sweep_sharded
+    from pnpinversion_tpu_torch.training import trainer as tr
+
+    inputs = torch.load(cfg["inputs"], weights_only=False)  # written by the test itself
+    SDPipeline.create = classmethod(functools.partial(tiny_create,
+                                                      jax_params=inputs["sweep_params"]))
+    out = {"sweep": run_sweep_sharded.main(cfg["argv"]),
+           "w8": run_sweep_sharded.main(cfg["argv_w8"])}
+    SDPipeline.create = classmethod(_ORIG_CREATE)
+    grid = make_groups(cfg["tp"])
+    pipe = SDPipeline.create(inputs["config"], device="cpu", dtype=torch.float32,
+                             jax_params=inputs["params"], num_ddim_steps=4)
+    b = inputs["batch"]["edited"].shape[1] // grid.dp
+    rows = {k: v[:, grid.dp_index * b: (grid.dp_index + 1) * b]
+            for k, v in inputs["batch"].items()}
+    t = tr.EditTrainer(inputs["config"], {"vae": pipe.vae, "text": pipe.text_encoder},
+                       pipe.unet, tr.TrainConfig(dtype=torch.float32, **inputs["kw"]),
+                       inputs["batch"]["edited"].shape[1], inputs["null_ids"],
+                       group=grid.dp_group, tp_group=grid.tp_group)
+    assert t.restore(cfg["start"])
+    out["metrics"] = {k: float(v) for k, v in t.train_step(rows, draws=inputs["draws"]).items()}
+    t.save(os.path.join(cfg["out"], "tp"))
+    d = {k: v[grid.dp_index * b: (grid.dp_index + 1) * b] for k, v in inputs["draws"][0].items()}
+    t.microbatch_loss(t.unet, rows["edited"][0].float(), rows["cond_image"][0].float(),
+                      rows["ids"][0].long(), d).backward()
+    out["grid"] = [grid.dp_index, grid.tp_index]
+    out["split"] = sum(a is not None for a in t.tp_axes)
+    out["replicated_grads"] = {
+        n: hashlib.sha1(p.grad.numpy().tobytes()).hexdigest() if p.grad is not None else None
+        for n, p, a in zip(t.names, t.params, t.tp_axes) if a is None}
+    return out
+
+
+SCENARIOS = {"shard": _shard, "sweep": _sweep, "train": _train, "train_cli": _train_cli,
+             "tp": _tp}
 
 
 def main(argv):

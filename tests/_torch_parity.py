@@ -191,10 +191,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(scenario: str, cfg: dict, out_dir: str, n: int = 2, timeout: float = 150.0) -> list:
+def run_ranks(scenario: str, cfg: dict, out_dir: str, n: int = 2, timeout: float = 150.0,
+              beside=None) -> list:
     """Runs ``tests/_torch_mp_worker.py SCENARIO`` as n gloo ranks on the
     loopback (a free port for rank 0) with ``cfg`` (plus ``out``: out_dir)
-    and returns each rank's JSON result. A rank that fails or outlasts
+    and returns each rank's JSON result; ``beside()``, where given, runs in
+    this process while the ranks run. A rank that fails or outlasts
     ``timeout`` seconds fails the test, and every rank is ended."""
     import json
     import subprocess
@@ -212,6 +214,8 @@ def run_ranks(scenario: str, cfg: dict, out_dir: str, n: int = 2, timeout: float
                               env=env, stdout=log, stderr=subprocess.STDOUT)
              for r, log in enumerate(logs)]
     try:
+        if beside is not None:
+            beside()
         for p in procs:
             p.wait(timeout=timeout)
     finally:

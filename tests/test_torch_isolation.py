@@ -70,4 +70,5 @@ def test_port_imports_without_jax():
             "pnpinversion_tpu_torch.runners.run_sweep",
             "pnpinversion_tpu_torch.parallel.multihost",
             "pnpinversion_tpu_torch.runners.run_sweep_sharded",
-            "pnpinversion_tpu_torch.evaluation.sharded"} <= names
+            "pnpinversion_tpu_torch.evaluation.sharded", "pnpinversion_tpu_torch.ops.quant",
+            "pnpinversion_tpu_torch.parallel.tensor_parallel"} <= names

@@ -324,8 +324,34 @@ def test_entry_point_raises_without_cuda(module):
         importlib.import_module(module).main(ENTRY_POINTS[module])
 
 
-def test_quant_w8_names_the_roadmap_item(tmp_path):
-    from pnpinversion_tpu_torch.runners import run_editing_p2p
+def test_quant_w8_names_the_roadmap_item(tmp_path, monkeypatch):
+    """``--quant w8`` reaches ``SDPipeline.create(quantize="w8")`` from the
+    editing runners (``cli.make_pipeline``) and the sweep, whose strips then
+    come from a w8 UNet (the JAX runners plumb it the same way); an unknown
+    mode is refused by argparse."""
+    from pnpinversion_tpu_torch.ops.quant import is_quantized
+    from pnpinversion_tpu_torch.runners import run_editing_p2p, run_sweep
 
-    with pytest.raises(NotImplementedError, match="A16"):
-        run_editing_p2p.main(["--data_path", str(tmp_path), "--quant", "w8", "--device", "cpu"])
+    made = []
+
+    def create(cls, config=None, num_ddim_steps=50, checkpoint_dir=None, device=None,
+               dtype=None, quantize=None, **kw):
+        cfg = tiny_configs(config.unet.in_channels)[1]
+        made.append((quantize, _ORIG_CREATE(cls, cfg, num_ddim_steps=num_ddim_steps,
+                                            device="cpu", dtype=torch.float32,
+                                            jax_params=_params(4), quantize=quantize)))
+        return made[-1][1]
+
+    monkeypatch.setattr(SDPipeline, "create", classmethod(create))
+    data = _dataset(str(tmp_path), 1)
+    method = "directinversion+p2p"
+    run_editing_p2p.main(_args(data, str(tmp_path / "out"), method, "--quant", "w8"))
+    run_sweep.main(["--method", method, "--data_path", data, "--output_path",
+                    str(tmp_path / "sweep"), "--num_ddim_steps", str(STEPS), "--device", "cpu",
+                    "--quant", "w8"])
+    assert [q for q, _ in made] == ["w8", "w8"] and all(is_quantized(p.unet) for _, p in made)
+    for out in ("out", "sweep"):
+        path = tmp_path / out / method / "annotation_images" / "0_random" / "000000.png"
+        assert _strip(path).shape == (SIZE, 4 * SIZE, 3)
+    with pytest.raises(SystemExit):
+        run_editing_p2p.main(["--data_path", data, "--quant", "w4", "--device", "cpu"])

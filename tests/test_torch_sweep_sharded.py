@@ -101,10 +101,16 @@ def test_two_ranks_write_their_slices(tmp_path, monkeypatch):
 
 
 def test_tp_and_cuda_rules(tmp_path):
+    """A ``--tp`` that does not divide the processes raises (one process on
+    the CPU included; before starting any); no CUDA and no ``--device cpu``
+    raises. The tp path itself: ``tests/test_torch_tensor_parallel.py``."""
     from pnpinversion_tpu_torch.runners import run_sweep_sharded
 
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="--tp 2 does not divide the 1 processes"):
         run_sweep_sharded.main(["--data_path", str(tmp_path), "--tp", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--tp 2 does not divide the 3 processes"):
+        run_sweep_sharded.main(["--data_path", str(tmp_path), "--n_devices", "3", "--tp", "2",
+                                "--device", "cpu"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_sweep_sharded.main(["--data_path", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):  # before starting any process

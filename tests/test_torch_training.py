@@ -263,8 +263,11 @@ def test_training_entry_points_refuse_what_they_cannot_do(tmp_path):
     """No CUDA and no ``--device cpu``: the runner raises (no quiet CPU
     run), also before starting ``--n_devices`` processes; ``--checkpoint_dir``
     is read strictly (a directory without weights raises); of the JAX
-    runner's multi-device flags, ``--tp > 1`` raises (ROADMAP A17) and
-    ``--num_processes`` needs a rank and an address."""
+    runner's multi-device flags, a ``--tp`` that does not divide the
+    processes raises (one process on the CPU included) and
+    ``--num_processes`` needs a rank and an address; ``--quant``, which the
+    JAX runner does not offer, is refused, and the trainer refuses a w8
+    UNet (``PNPI_QUANT=w8``)."""
     from pnpinversion_tpu_torch.runners import run_training_instructpix2pix as runner
 
     argv = _cli_argv(str(tmp_path / "ds"), str(tmp_path / "run"))
@@ -276,7 +279,18 @@ def test_training_entry_points_refuse_what_they_cannot_do(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             runner.main(argv + ["--n_devices", "2"])
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="--tp 2 does not divide the 1 processes"):
         runner.main(argv + ["--device", "cpu", "--tp", "2"])
+    with pytest.raises(ValueError, match="--tp 2 does not divide the 3 processes"):
+        runner.main(argv + ["--device", "cpu", "--n_devices", "3", "--tp", "2"])
+    with pytest.raises(SystemExit):
+        runner.main(argv + ["--device", "cpu", "--quant", "w8"])
+    from pnpinversion_tpu_torch.ops.quant import quantize_unet_dots
+
+    jcfg, tcfg = tiny_configs(8)
+    unet = quantize_unet_dots(from_jax_params(pipeline_params(jcfg)["unet"], tcfg.unet))
+    with pytest.raises(ValueError, match="float UNet"):
+        tr.EditTrainer(tcfg, {"vae": None, "text": None}, unet, tr.TrainConfig(), 4,
+                       np.zeros(77, np.int32))
     with pytest.raises(ValueError, match="process_id"):
         runner.main(argv + ["--device", "cpu", "--num_processes", "2"])

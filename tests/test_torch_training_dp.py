@@ -250,5 +250,5 @@ def test_training_cli_two_ranks_then_one(tmp_path, monkeypatch):
     log = [json.loads(line) for line in open(out / "train_log.jsonl")]
     assert [r["event"] for r in log][3:] == ["train", "done"] and log[3]["step"] == 3
     assert log[3]["lr"] == pytest.approx(2 * 1 * 4 * 1e-4)  # one rank now
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="--tp 2 does not divide the 1 processes"):
         runner.main(argv + ["--tp", "2"])
