@@ -23,17 +23,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    DDIM steps), a warm-up edit, a timed edit whose kernel launches are
    counted, and a per-phase timed edit whose latents are checked;
 5. drive the batched path: ``BatchedDirectInversionP2P.edit_batch`` on 4
-   images (the same workload, the cake prompts), a warm-up batch and a timed
-   batch whose launches are counted, then each image through the
-   single-image editor and the uint8 difference of the two paths' panels,
+   images (the same workload at 20 steps, the cake prompts), a warm-up
+   batch and a timed batch whose launches are counted, then each image
+   through the single-image editor and the uint8 difference of the panels,
    and the checks that tell a fault of the batched path from the numerics
    of another batch size (the reconstructions are the VAE round trip; with
    a prompt pair per image, the images do not interact);
 6. drive null-text-inversion+p2p: a warm-up edit at 2 DDIM steps, then one
-   edit at 10 whose launches of every kernel are counted and whose phases
+   edit at 3 whose launches of every kernel are counted and whose phases
    are timed to a synchronize each; the backward kernels run in its inner
    Adam loop, which differentiates through the UNet; then one counted
-   ``ddim+p2p`` edit;
+   ``ddim+p2p`` edit at 10;
 7. one counted edit of each other P2P-family method group through
    ``P2PEditor`` at 5 DDIM steps (negative-prompt inversion, ProxEdit,
    the null-text and null-latent ablations, the guidance grid, the
@@ -42,15 +42,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    null-text's per-image early stop (two images, one of which stops early);
    then the MasaCtrl, PnP and edit-friendly DDPM families: one counted edit
    each of ``directinversion+masactrl``, ``directinversion+pnp`` and
-   ``edit-friendly-inversion+p2p`` at 20 steps (timed per phase), their
-   batched classes on 4 images at 20 steps, each image against the
+   ``edit-friendly-inversion+p2p`` at 5 steps (timed per phase), their
+   batched classes on 4 images at 5 steps, each image against the
    single-image editor, images kept in place unmoved when the others
    change, ``ddim+masactrl`` and ``ddim+pnp`` at 5 steps, and one UNet call
    under each other MasaCtrl control (union, masks, auto masks); EF's UNet
    computes in f32 (the bf16 pipeline's layers cast their weights to its
    f32 latents), so its runs launch only the f32 forward; then EDICT, in
    f32 the same way: the cost of that per-call cast against an f32 copy of
-   the UNet, one counted ``edict+p2p`` edit at 20 steps with the float64
+   the UNet, one counted ``edict+p2p`` edit at 5 steps with the float64
    carry (timed per pass), the f32 attention's share of an edit from a
    device trace (5 steps), ``edict+direct_forward`` at 5 with the f32
    carry, ``BatchedEDICT`` on 4 images at 3 for both methods (each image
@@ -65,17 +65,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one counted ``stylediffusion+p2p`` edit at 3 steps and 3 inner steps (its
    training runs the backward at nine sites) and ``BatchedStyleDiffusion``
    on the 4 images; then, the SD1.4 pipeline freed, Blended Latent Diffusion
-   on its own SD2.1 pipeline (64-dim heads): one counted 20-step edit and
+   on its own SD2.1 pipeline (64-dim heads): one counted 5-step edit and
    ``BatchedBLD`` on 4 images, images kept in place unmoved when the others
    change;
 8. the f32 pipeline (``SDPipeline.create(..., dtype=torch.float32)``, full
-   f32): one counted directinversion+p2p edit and one counted
+   f32): one counted directinversion+p2p edit (10 steps) and one counted
    null-text-inversion+p2p edit, which launch only the f32 kernels, a device
    trace of the f32 null-text edit (the f32 backward's share), and
    one UNet call with TF32 on against full f32; then InstructPix2Pix and
    InstructDiffusion on an IP2P pipeline (the 8-channel UNet, bf16, its UNet
-   in f32): one counted edit each at 20 steps and ``BatchedInstruct`` on 4
-   images at 20 (each edit within 2 uint8 levels of the editor's); then
+   in f32): one counted edit each at 5 steps and ``BatchedInstruct`` on 4
+   images at 5 (each edit within 2 uint8 levels of the editor's); then
    the InstructPix2Pix training path on its own SD1.4 pipeline: a prompt
    dataset of 2 template records, 4 candidate pairs each at 512^2 (one
    sampler call of 16 rows, P2P self-attention sharing, the full-width CLIP
@@ -104,16 +104,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one process) and one step without ZeRO, each rank's launches counted and
    its peak memory both ways; then the weight-only int8 UNet
    (``w8_phase``): ``runners.run_sweep --quant w8`` x4 on that directory
-   and the x1 edit float then w8 at 50 steps (s, peak memory, weight bytes,
+   and the x1 edit float then w8 at 10 steps (s, peak memory, weight bytes,
    one UNet call's eps against float); then the tensor-parallel axis
    (``tp_phase``): two more ranks on the card, one tp group over gloo,
    started early, run ``run_sweep_sharded --tp 2`` over 2 images (every
    strip written once, each image counted once), one UNet call in bf16 and
    f32 and a training step of 8 rows split over the group, each against one
    process beside them (the f32 eps within 1e-4; the bf16 eps, the panels
-   and the loss within twice one process's own bf16 spread); every shape
-   that these paths launched a kernel at, in either dtype, must be one that
-   phase 3 held against the plain version;
+   and the loss within twice one process's own bf16 spread); then every
+   other editing family's ``run_sweep_sharded --tp 2`` on one image at 2
+   steps (``TP_GROUPS``, seeded weights: MasaCtrl, PnP, EF, EDICT,
+   InstructPix2Pix, BLD on SD2.1, null-text, pix2pix-zero, StyleDiffusion;
+   null-text's and StyleDiffusion's inner loops at 3 steps with a threshold
+   that one process's losses put between the first two), each counted
+   against one process's run of the same image beside them (the launches
+   equal, less those of the inner steps each took), its panels within twice
+   one process's own spread (batch 1 against batch 2; PnP within a fixed
+   10 levels), its loops stopped before their end, and the two ranks'
+   records (``parallel/agreement.py``: the losses their loops read, the
+   inner steps they took, the digests of their decoded panels) equal; every
+   shape that these paths launched a kernel at, in either dtype, must be one
+   that phase 3 held against the plain version;
 9. the PIE-Bench evaluator at full width (CLIP ViT-L/14, DINO ViT-B/8,
    SqueezeNet LPIPS, random weights, f32) over the batched path's strips,
    written in the runners' layout with a synthetic mapping file: the CSV's
@@ -131,7 +142,9 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -196,6 +209,9 @@ FLASH_CASES = [
     ("sd21_32x32", 2, 10, 1024, 1024, 64, True, True),
     ("sd21_batch4_64x64", 8, 5, 4096, 4096, 64, True, True),
     ("sd21_batch4_32x32", 8, 10, 1024, 1024, 64, True, True),
+    # ... and 4 at 2 images (tp_phase's one-process spread, batch 2)
+    ("sd21_batch2_64x64", 4, 5, 4096, 4096, 64, True, False),
+    ("sd21_batch2_32x32", 4, 10, 1024, 1024, 64, True, False),
     # InstructPix2Pix training at 256^2 crops: the 32^2 sites of
     # down_blocks[0]/up_blocks[3] (8 heads of d = 40) at batch 8 (the smoke's)
     # and 32 (the runner's default)
@@ -211,6 +227,11 @@ FLASH_CASES = [
 F32_FLASH_CASES = [
     (f"f32_rows{b}_{size}", b, 8, s, s, d, True, True)
     for b in (1, 2, 3, 4, 8, 12, 16) for size, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80))
+] + [
+    # the instruction editors' 3 rows at 2 images (tp_phase's one-process
+    # spread, batch 2)
+    (f"f32_rows6_{size}", 6, 8, s, s, d, True, False)
+    for size, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80))
 ] + [
     # the weight-checking CLI's forward smoke (python -m
     # pnpinversion_tpu_torch.convert) runs the f32 UNet on a 32^2 latent: its
@@ -862,9 +883,11 @@ EDIT_KW = dict(guidance_scale=7.5, blend_word=(("cake",), ("cake",)),
 NULL_TEXT = "null-text-inversion+p2p"
 # DDIM steps of the counted null-text edit: 25 since the MasaCtrl, PnP and
 # EF families joined the script (its 500 inner steps at 50 took ~95 s), 10
-# since the f32 null-text trace did (its 250 inner steps took 62-78 s); the
+# since the f32 null-text trace did (its 250 inner steps took 62-78 s), 5
+# since the tp families did (the smoke then ran 1,275.6 s on a slow host), 3
+# since they took 2 steps and stops (1,011.6 s on a slow host); the
 # shapes, and so the kernels' checks, do not depend on the steps
-NULL_TEXT_STEPS = 10
+NULL_TEXT_STEPS = 3
 NULL_TEXT_INNER = 10  # the reference's num_inner_steps, the editor's default
 
 
@@ -1050,13 +1073,23 @@ def null_text_phase(pipe, steps: int = NULL_TEXT_STEPS) -> dict:
             "vae_decode_x2_s": seconds["decode_image"][0]}
 
 
+# DDIM steps of the counted ddim+p2p edit and of the batched headline's
+# batches and single edits: 50 until the tp families joined the smoke (its
+# time on slow hosts; the shapes do not depend on the steps, and
+# scripts/probe_torch_batch.py times the batch at 50)
+DDIM_STEPS = 10
+BATCHED_STEPS = 20
+
+
 def ddim_phase(pipe) -> dict:
     """One SD1.4 ddim+p2p edit (it shares the CFG loops of null-text+p2p)
     with its launches counted: inversion, reconstruction and edit, no
     backward."""
     from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
+    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
 
-    steps = pipe.schedule.num_steps
+    steps = DDIM_STEPS
+    pipe = dataclasses.replace(pipe, schedule=make_ddim_schedule(steps))
     _reset_counts()
     strip, t_edit = _sync_time(lambda: P2PEditor(pipe)("ddim+p2p", _random_images(99)(), SRC,
                                                         TAR, **EDIT_KW))
@@ -1198,9 +1231,9 @@ def _diff(got, ref):
     return int(d.max()), float(d.mean())
 
 
-def batched_phase(pipe, single_s: float) -> dict:
+def batched_phase(pipe) -> dict:
     """The batched editor's headline: ``BatchedDirectInversionP2P`` on
-    ``BATCH`` images (SD1.4, 512^2, the pipeline's steps, the cake edit): a
+    ``BATCH`` images (SD1.4, 512^2, BATCHED_STEPS, the cake edit): a
     warm-up batch, then a timed batch whose launches are counted; then each
     image of it through the single-image editor, and the uint8 difference of
     the two paths' panels, image by image. Then the checks that tell a fault
@@ -1227,7 +1260,8 @@ def batched_phase(pipe, single_s: float) -> dict:
     from pnpinversion_tpu_torch.parallel.sweep import BatchedDirectInversionP2P
     from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
 
-    steps = pipe.schedule.num_steps
+    steps = BATCHED_STEPS
+    pipe = dataclasses.replace(pipe, schedule=make_ddim_schedule(steps))
     sweep = BatchedDirectInversionP2P(pipe)
     spec, cond, uncond, tensors = _cake_batch(pipe, [(SRC, TAR)] * BATCH)
     size = pipe.config.image_size
@@ -1258,7 +1292,8 @@ def batched_phase(pipe, single_s: float) -> dict:
         strip = editor("directinversion+p2p", imgs[i], SRC, TAR, **EDIT_KW)
         return strip[:, 2 * size:3 * size], strip[:, 3 * size:]
 
-    singles = [single(i) for i in range(BATCH)]
+    first_single, single_s = _sync_time(lambda: single(0))
+    singles = [first_single] + [single(i) for i in range(1, BATCH)]
     diffs = {"recon_max": [], "recon_mean": [], "edit_max": [], "edit_mean": []}
     for i in range(BATCH):
         for name, got, ref in zip(("recon", "edit"), (recon[i], edits[i]), singles[i]):
@@ -1437,9 +1472,11 @@ FAMILY_RUNS = ("directinversion+masactrl", "directinversion+pnp", "edit-friendly
 # weights to the f32 latents), as the JAX package's layers do
 F32_FAMILIES = ("edit-friendly-inversion+p2p",)
 # DDIM steps of the families' counted edits and batches: 50 until the tp and
-# w8 phases joined the script (the smoke's time; their shapes do not depend
-# on the steps, and scripts/time_torch_families.py times them at 50)
-FAMILY_STEPS = 20
+# w8 phases joined the script, 20 until the tp families did, 10 until they
+# took 2 steps and stops (the smoke's time on slow hosts; their shapes do
+# not depend on the steps, and
+# scripts/time_torch_families.py times them at 50)
+FAMILY_STEPS = 5
 FAMILY_SHORT_RUNS = ("ddim+masactrl", "ddim+pnp")  # counted at VARIANT_STEPS
 EF_SKIP = 12  # the EF editor's default: T forward and T - 12 reverse UNet calls
 
@@ -1715,11 +1752,12 @@ def masactrl_controls_phase(pipe) -> dict:
 
 
 # DDIM steps of the counted edict+p2p edit (float64 carry; 50 before the tp
-# and w8 phases joined)
-EDICT_STEPS = 20
+# and w8 phases joined, 20 before the tp families did, 10 before they took
+# 2 steps and stops)
+EDICT_STEPS = 5
 EDICT_SHORT_STEPS = 5  # of edict+direct_forward (f32 carry)
 EDICT_BATCH_STEPS = 3  # of BatchedEDICT x4, both methods (float64 carry)
-EDICT_ROUND_TRIP_STEPS = 10  # of the strength-1.0 round trips in both precisions
+EDICT_ROUND_TRIP_STEPS = 5  # of the strength-1.0 round trips in both precisions
 EDICT_WARMUP_STEPS = 3
 EDICT_TRACE_STEPS = 5  # of the edict+p2p edit traced for the f32 attention's share
 F32_PANEL_TOL = 2  # uint8 levels: an f32 path's batched panels against the editor's
@@ -1984,8 +2022,9 @@ def edict_phase(pipe) -> dict:
 
 
 # sampling steps of the counted instruction edits and the batch (50 before
-# the tp and w8 phases joined)
-INSTRUCT_STEPS = 20
+# the tp and w8 phases joined, 20 before the tp families did, 10 before they
+# took 2 steps and stops)
+INSTRUCT_STEPS = 5
 INSTRUCTIONS = ("make the cake square", "turn the plate into glass", "put candles on the cake",
                 "make it a chocolate cake")
 
@@ -2259,7 +2298,7 @@ def training_phase() -> dict:
     return out
 
 
-F32_DI_STEPS = 50        # DDIM steps of the f32 directinversion+p2p edit
+F32_DI_STEPS = 10  # DDIM steps of the f32 directinversion+p2p edit (50 before the tp families)
 F32_NULL_TEXT_STEPS = 3  # and of the f32 null-text edit (10 inner steps each)
 F32_BWD_KERNELS = {"dq": "flash_bwd_dq_f32_kernel", "dkv": "flash_bwd_dkv_f32_kernel",
                    "split": "flash_bwd_f32_split_kernel"}
@@ -2582,7 +2621,10 @@ def _sharded_eval(calc, mapping_path: str, src_folder: str, folders: dict, rows:
 # pix2pix-zero (with its BLIP captioner) and StyleDiffusion
 # ---------------------------------------------------------------------------
 
-BLD_STEPS = 20  # DDIM steps of the counted BLD edit and batch (50 before the tp and w8 phases)
+# DDIM steps of the counted BLD edit and batch (50 before the tp and w8 phases
+# joined, 20 before the tp families did, 10 before they took 2 steps and
+# stops)
+BLD_STEPS = 5
 P2Z_STEPS = 5  # of the counted pix2pix-zero edits and batch
 SD_STEPS = 3  # of the counted StyleDiffusion edit and batch
 SD_INNER = 3  # StyleDiffusion's inner Adam steps (the editor's default is 100)
@@ -2940,93 +2982,25 @@ def stylediffusion_phase(pipe) -> dict:
 
 
 ENTRY_DIR = "build/smoke_entry"  # git-ignored; removed when the phase ends
-# DDIM steps of the runner's and the sweep's edits: 10 keeps the phase near
-# 25 s (the shapes do not depend on the steps; the smoke reached 826.7 s with
-# 50 on a slow host); scripts/time_torch_entry_points.py times them at 50
-ENTRY_STEPS = 10
+# DDIM steps of the runner's and the sweep's edits (and the multi-process
+# and w8 sweeps'): 10 kept the phase near 25 s, 5 since the tp families
+# joined (the shapes do not depend on the steps; the smoke reached 826.7 s
+# with 50 on a slow host); scripts/time_torch_entry_points.py times them at 50
+ENTRY_STEPS = 5
 ENTRY_RUNNER_IMAGES = 2  # category "0" of the mini PIE-Bench; the sweep takes all BATCH
 
 
-def _bpe_vocab(root: str, prompts) -> str:
-    """A tiny CLIP BPE vocabulary in the HF layout (``vocab.json`` +
-    ``merges.txt``): every byte and its word-final form, merges that build
-    the prompts' words left to right, the two specials. Returns its dir."""
-    from pnpinversion_tpu_torch.utils.tokenizer import _bytes_to_unicode
-
-    alphabet = list(_bytes_to_unicode().values())
-    vocab = {c: i for i, c in enumerate(alphabet + [c + "</w>" for c in alphabet])}
-    merges = []
-    for word in sorted({w for p in prompts for w in p.lower().split()}):
-        parts = list(word[:-1]) + [word[-1] + "</w>"]
-        while len(parts) > 1:
-            merge = f"{parts[0]} {parts[1]}"
-            if merge not in merges:
-                merges.append(merge)
-            parts = [parts[0] + parts[1]] + parts[2:]
-            vocab.setdefault(parts[0], len(vocab))
-    vocab["<|startoftext|>"] = len(vocab)
-    vocab["<|endoftext|>"] = len(vocab)
-    os.makedirs(root, exist_ok=True)
-    with open(os.path.join(root, "vocab.json"), "w") as f:
-        json.dump(vocab, f)
-    with open(os.path.join(root, "merges.txt"), "w") as f:
-        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
-    return root
-
-
-_OLD_VAE_ATTN = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
-
-
-def _write_hf_checkpoint(root: str, modules: dict) -> int:
-    """The modules as an HF SD directory of f16 safetensors (the VAE under
-    the older diffusers attention names), written with the port's own
-    writer. Returns the bytes written."""
-    from pnpinversion_tpu_torch.convert.safetensors_io import write_safetensors
-
-    total = 0
-    for part, sub in (("unet", "unet"), ("vae", "vae"), ("text", "text_encoder")):
-        sd = {}
-        for k, v in modules[part].state_dict().items():
-            for new, old in _OLD_VAE_ATTN.items():
-                if part == "vae" and f".attentions.0.{new}." in k:
-                    k = k.replace(f".attentions.0.{new}.", f".attentions.0.{old}.")
-            sd[k] = v.detach().to("cpu", torch.float16)
-        os.makedirs(os.path.join(root, sub), exist_ok=True)
-        path = os.path.join(root, sub, "diffusion_pytorch_model.safetensors")
-        write_safetensors(path, sd)
-        total += os.path.getsize(path)
-    return total
-
-
 def _mini_pie_bench(root: str, n: int, size: int) -> str:
-    """A PIE-Bench ``data/`` of n seeded JPEG images with the cake prompts
-    (one pair each, in turn), LocalBlend on "cake", the first
-    ENTRY_RUNNER_IMAGES in category 0 and the rest in 1. Returns the data
-    dir."""
-    from PIL import Image
+    """The smoke's mini PIE-Bench (``data/seeded.py``): n seeded JPEG images
+    with the cake prompts (one pair each, in turn), LocalBlend on "cake",
+    the first ENTRY_RUNNER_IMAGES in category 0 and the rest in 1. Returns
+    the data dir."""
+    from pnpinversion_tpu_torch.data import seeded
 
-    from pnpinversion_tpu_torch.data.pie_bench import mask_encode
-
-    image = _random_images(8080, size)
-    data = os.path.join(root, "data")
-    mapping = {}
-    for i in range(n):
-        rel = f"{int(i >= ENTRY_RUNNER_IMAGES)}_random/{i:03d}.jpg"
-        path = os.path.join(data, "annotation_images", rel)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        Image.fromarray(image()).save(path)
-        src, tar = CAKE_PROMPTS[i % len(CAKE_PROMPTS)]
-        mask = np.zeros((512, 512), np.uint8)
-        mask[128:384, 96:352] = 1
-        mapping[f"{i:09d}"] = {
-            "image_path": rel, "original_prompt": src.replace("round", "[round]"),
-            "editing_prompt": tar.replace("square", "[square]"),
-            "editing_instruction": "make the cake square",
-            "editing_type_id": str(int(i >= ENTRY_RUNNER_IMAGES)), "blended_word": "cake cake",
-            "mask": mask_encode(mask)}
-    with open(os.path.join(data, "mapping_file.json"), "w") as f:
-        json.dump(mapping, f)
-    return data
+    prompts = [(src.replace("round", "[round]"), tar.replace("square", "[square]"),
+                "make the cake square", "cake cake") for src, tar in CAKE_PROMPTS]
+    return seeded.mini_pie_bench(root, n, size, seed=8080, prompts=prompts, key="{:09d}",
+                                 category=lambda i: int(i >= ENTRY_RUNNER_IMAGES))
 
 
 class _CreateSpy:
@@ -3111,6 +3085,7 @@ def entry_points_phase(config=None, steps: int = ENTRY_STEPS, device: str = "cud
     from pnpinversion_tpu_torch import configs
     from pnpinversion_tpu_torch.control.p2p import make_p2p_control, stack_tensors
     from pnpinversion_tpu_torch.convert.ldm import ldm_state_dict
+    from pnpinversion_tpu_torch.data import seeded as seeded_data
     from pnpinversion_tpu_torch.data.pie_bench import PieBenchDataset, load_image
     from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
     from pnpinversion_tpu_torch.parallel.sweep import BatchedDirectInversionP2P
@@ -3126,8 +3101,9 @@ def entry_points_phase(config=None, steps: int = ENTRY_STEPS, device: str = "cud
         seeded_pipe = SDPipeline.create(config, seed=13, device=device, dtype=torch.float32)
         seeded = {"unet": seeded_pipe.unet, "vae": seeded_pipe.vae,
                   "text": seeded_pipe.text_encoder}
-        nbytes, t_write = _sync_time(lambda: _write_hf_checkpoint(ckpt, seeded))
-        _bpe_vocab(os.path.join(ckpt, "tokenizer"), [t for p in CAKE_PROMPTS for t in p])
+        nbytes, t_write = _sync_time(lambda: seeded_data.write_hf_checkpoint(ckpt, seeded))
+        seeded_data.bpe_vocab(os.path.join(ckpt, "tokenizer"),
+                              [t for p in CAKE_PROMPTS for t in p])
         size = config.image_size
         data = _mini_pie_bench(ENTRY_DIR, BATCH, size)
         out.update(checkpoint_gb=nbytes / 1e9, write_s=t_write)
@@ -3371,6 +3347,15 @@ def _mp_streams(spec: dict, pipe) -> list:
     return take
 
 
+def _wait_for(path: str, who: str) -> None:
+    """Waits for the parent to write ``path``, at most MP_TIMEOUT_S."""
+    deadline = time.perf_counter() + MP_TIMEOUT_S
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{who}: no {path} within {MP_TIMEOUT_S} s")
+        time.sleep(0.2)
+
+
 def _mp_rank(rank: int, address: str, spec: dict) -> None:
     """One of the MP_RANKS processes on the card (spawned): joins the gloo
     group, then runs ``run_sweep_sharded`` (counted), the same again (every
@@ -3393,11 +3378,7 @@ def _mp_rank(rank: int, address: str, spec: dict) -> None:
         x = torch.randn(1, 8, 16, 16, device="cuda", dtype=torch.bfloat16)
         torch.nn.functional.conv2d(x, torch.randn(8, 8, 3, 3, device=x.device, dtype=x.dtype))
         (x.flatten(1) @ x.flatten(1).T).sum().item()
-    deadline = time.perf_counter() + MP_TIMEOUT_S
-    while not os.path.exists(spec["ready"]):  # the parent writes the data, then this file
-        if time.perf_counter() > deadline:
-            raise AssertionError(f"rank {rank}: no {spec['ready']} within {MP_TIMEOUT_S} s")
-        time.sleep(0.2)
+    _wait_for(spec["ready"], f"rank {rank}")  # the parent writes the data, then this file
     flags = ["--num_processes", str(MP_RANKS), "--process_id", str(rank),
              "--coordinator_address", address, "--dist_backend", "gloo"]
     out = {}
@@ -3775,7 +3756,7 @@ def multi_process_phase(started) -> dict:
 # the weight-only int8 UNet (--quant w8) and the tensor-parallel axis (--tp)
 # ---------------------------------------------------------------------------
 
-W8_TIMED_STEPS = 50  # the x1 edits, float then w8: the main path's steps
+W8_TIMED_STEPS = 10  # the x1 edits, float then w8 (time_torch_w8.py times them at 50)
 # one bf16 UNet call of the w8 UNet against the float one, relative L2 of
 # eps: the JAX package holds TINY's f32 call to 0.02; SD1.4's depth and the
 # bf16 activations add their own rounding
@@ -3794,6 +3775,31 @@ TP_F32_EPS_RTOL = 1e-4  # the f32 call split against whole: sums in another orde
 TP_SPREAD_FACTOR = 2.0
 TP_LOSS_FLOOR_RTOL = 1e-3
 TP_PANEL_FLOOR = 2.0  # uint8 levels of mean |difference|
+# the other editing families' tp sweeps (ROADMAP C15): each on one image
+# (the shapes of a one-image edit, which the families' phases check) at 2
+# DDIM steps, the fewest whose edits read the UNet's eps (at 1 the one step
+# runs from t = 0 to alpha_cumprod[0], the identity, for all but PnP, whose
+# schedule is offset by 1) and that launch every kernel (EDICT's
+# 0.8-strength edit pass needs 2), on seeded weights (the IP2P and SD2.1
+# configs have no directory here; the P2P sweep above loads the SD1.4 one);
+# (method, inner steps a DDIM step of the loops that stop on a loss, None
+# for the rest): those take TP_INNER, and a threshold that stops them at the
+# second (``_tp_thresholds``)
+TP_GROUP_IMAGES = 1
+TP_GROUP_STEPS = 2
+TP_INNER = 3
+TP_GROUPS = (("directinversion+masactrl", None), ("directinversion+pnp", None),
+             ("edit-friendly-inversion+p2p", None), ("edict+p2p", None),
+             ("instruct-pix2pix", None), ("blended-latent-diffusion", None),
+             ("null-text-inversion+p2p", TP_INNER), ("directinversion+pix2pix-zero", None),
+             ("stylediffusion+p2p", TP_INNER))
+# PnP's panels against one process's at the same batch, mean |difference| in
+# uint8 levels: its one-process batch-1-vs-2 spread (12.4 levels at 1 step,
+# 20.0 at 2 on the edit) is the seeded word tokenizer's numbering, not the
+# numerics (ROADMAP C17), and would set a limit near a typical difference
+# between unrelated panels; 2x the 4.9 its tp run measured at 2 steps
+TP_FIXED_PANEL_LIMIT = {"directinversion+pnp": 10.0}
+TP_CAPTION = "a photo of a round cake"  # pix2pix-zero's --caption_file (no BLIP weights here)
 
 
 def _module_bytes(module) -> int:
@@ -3916,6 +3922,102 @@ def _tp_sweep_argv(spec: dict, out: str, log: str, batch: int) -> list:
             log, "--device", spec["device"]]
 
 
+def _tp_group_argv(spec: dict, method: str, images: int, out: str) -> list:
+    """A family's sweep over the first ``images`` images of the groups' mini
+    PIE-Bench, ``images`` a call, at TP_GROUP_STEPS."""
+    argv = ["--method", method, "--data_path", spec["group_data"][images], "--output_path", out,
+            "--num_ddim_steps", str(TP_GROUP_STEPS), "--batch_per_device", str(images),
+            "--device", spec["device"]]
+    if method.endswith("pix2pix-zero"):
+        argv += ["--caption_file", spec["captions"]]
+    return argv
+
+
+def _overriding(fn, fixed: dict, *args, **kwargs):
+    """``fn`` with ``fixed``'s keyword arguments over the caller's."""
+    return fn(*args, **{**kwargs, **fixed})
+
+
+class _InnerLoops:
+    """Null-text's, null-latent's and StyleDiffusion's inner loops with
+    ``fixed``'s keyword arguments (``num_inner_steps``, ``epsilon``) over
+    those the batched classes pass (as the tp families' CPU tests set them);
+    a context manager."""
+
+    def __init__(self, **fixed):
+        from pnpinversion_tpu_torch.editors import stylediffusion_editor
+        from pnpinversion_tpu_torch.inversion import ddim_inversion, stylediffusion
+        from pnpinversion_tpu_torch.parallel import sweep
+
+        self.new = {(owner, fn.__name__): functools.partial(_overriding, fn, fixed)
+                    for owner, fn in ((sweep, ddim_inversion.null_text_optimization),
+                                      (sweep, ddim_inversion.null_latent_offsets),
+                                      (stylediffusion_editor, stylediffusion.train_mappers))}
+
+    def __enter__(self):
+        self.old = {key: key[0].__dict__[key[1]] for key in self.new}
+        for (owner, name), value in self.new.items():
+            setattr(owner, name, value)
+
+    def __exit__(self, *exc):
+        for (owner, name), value in self.old.items():
+            setattr(owner, name, value)
+
+
+def _tp_group_run(fn, argv: list, inner=None, epsilon=None) -> dict:
+    """``fn(argv)`` (a sweep's main), counted, timed and recorded: its
+    host decisions, its inner losses and its panel digests
+    (``parallel/agreement.py``); with ``inner``, the loops that stop on a
+    loss take that many inner steps and the threshold ``epsilon``."""
+    from pnpinversion_tpu_torch.parallel import agreement
+
+    _reset_counts()
+    loops = (contextlib.nullcontext() if inner is None
+             else _InnerLoops(num_inner_steps=inner, epsilon=epsilon))
+    with loops, agreement.recording() as record:
+        done, t = _sync_time(lambda: fn(argv))
+    row = {"done": done, "run_s": t, "launches": _counts(), "f32_launches": _f32_counts(),
+           "record": record}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _tp_thresholds(spec: dict) -> dict:
+    """The stop threshold of each family of TP_GROUPS that stops on a loss,
+    from one process's run of the tp image with TP_INNER inner steps and no
+    stop (epsilon 0): the midpoint of its first two inner losses at the
+    first DDIM step, so that the stop falls at the second inner step there;
+    checked to fall before the loop's end at every DDIM step. Writes
+    {method: epsilon} to spec["thresholds"] for the ranks; returns each
+    family's epsilon and losses by DDIM step."""
+    from pnpinversion_tpu_torch.runners import run_sweep
+
+    out = {}
+    for method, inner in TP_GROUPS:
+        if inner is None:
+            continue
+        row = _tp_group_run(run_sweep.main, _tp_group_argv(
+            spec, method, TP_GROUP_IMAGES, os.path.join(spec["dir"], "probe")), inner, 0.0)
+        losses, by_step = [v[0] for _, v in row["record"]["losses"]], []
+        for _, n in row["record"]["decisions"]:
+            by_step.append(losses[:n])
+            losses = losses[n:]
+        first = by_step[0]
+        if not (len(by_step) == TP_GROUP_STEPS and len(first) == inner and first[1] < first[0]):
+            raise AssertionError(f"{method}: no threshold between its first inner losses: "
+                                 f"{by_step}")
+        epsilon = (first[0] + first[1]) / 2
+        if not all(min(ls[:inner - 1]) < epsilon + 2e-5 * i for i, ls in enumerate(by_step)):
+            raise AssertionError(f"{method}: epsilon {epsilon} stops no loop before its end at "
+                                 f"some DDIM step: {by_step}")
+        out[method] = {"epsilon": epsilon, "losses": by_step}
+    with open(spec["thresholds"] + ".tmp", "w") as f:
+        json.dump({m: r["epsilon"] for m, r in out.items()}, f)
+    os.replace(spec["thresholds"] + ".tmp", spec["thresholds"])
+    return out
+
+
 def _tp_trainer(spec: dict, grid=None):
     """The training runner's trainer on the smoke's SD1.4 directory (its
     4-channel UNet widened to 8; batch TRAIN_BATCH, one microbatch, ZeRO),
@@ -3957,8 +4059,10 @@ def _tp_rank(rank: int, address: str, spec: dict) -> None:
     joins the gloo group and warms its CUDA context, waits for the phase's
     data, then runs ``run_sweep_sharded --tp`` (counted, its gathers
     counted), one UNet call on the sweep's split pipeline in bf16 and in f32
-    (rank 0 keeps their eps), and one trainer step split over the group
-    (counted; its peak memory); writes its numbers to TP_DIR/rank<r>.json."""
+    (rank 0 keeps their eps), one trainer step split over the group
+    (counted; its peak memory), then each family of TP_GROUPS
+    (``_tp_group_run``: counted and recorded); writes its numbers to
+    TP_DIR/rank<r>.json."""
     from pnpinversion_tpu_torch.parallel import multihost
     from pnpinversion_tpu_torch.parallel import tensor_parallel as tpar
     from pnpinversion_tpu_torch.runners import run_sweep_sharded
@@ -3971,11 +4075,7 @@ def _tp_rank(rank: int, address: str, spec: dict) -> None:
         x = torch.randn(1, 8, 16, 16, device="cuda", dtype=torch.bfloat16)
         torch.nn.functional.conv2d(x, torch.randn(8, 8, 3, 3, device=x.device, dtype=x.dtype))
         (x.flatten(1) @ x.flatten(1).T).sum().item()
-    deadline = time.perf_counter() + MP_TIMEOUT_S
-    while not os.path.exists(spec["ready"]):
-        if time.perf_counter() > deadline:
-            raise AssertionError(f"rank {rank}: no {spec['ready']} within {MP_TIMEOUT_S} s")
-        time.sleep(0.2)
+    _wait_for(spec["ready"], f"rank {rank}")
     gathers = {"calls": 0, "bytes": 0}
     gather = multihost.all_gather_columns
 
@@ -4023,6 +4123,16 @@ def _tp_rank(rank: int, address: str, spec: dict) -> None:
                         "step_s": t, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                         "launches": _counts(), "gathers": gathers["calls"] - before["calls"],
                         "split_tensors": sum(a is not None for a in trainer.tp_axes)}
+        del trainer, tpipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        _wait_for(spec["thresholds"], f"rank {rank}")
+        with open(spec["thresholds"]) as f:
+            epsilon = json.load(f)
+        out["groups"] = {method: _tp_group_run(run_sweep_sharded.main, _tp_group_argv(
+            spec, method, TP_GROUP_IMAGES, spec["group_out"]) + [
+                "--run_log", spec["group_log"]] + flags, inner, epsilon.get(method))
+            for method, inner in TP_GROUPS}
     finally:
         multihost.shutdown()
     out["path_shapes"] = {k: sorted(v) for k, v in PATH_SHAPES.items()}
@@ -4046,7 +4156,12 @@ def tp_start(device: str = "cuda"):
     spec = {"dir": TP_DIR, "ckpt": os.path.join(ENTRY_DIR, "sd14"), "device": device,
             "data": os.path.join(TP_DIR, "data"), "pairs": os.path.join(TP_DIR, "pairs"),
             "ready": os.path.join(TP_DIR, "ready"), "sweep_out": os.path.join(TP_DIR, "sweep"),
-            "sweep_log": os.path.join(TP_DIR, "sweep_log.jsonl")}
+            "sweep_log": os.path.join(TP_DIR, "sweep_log.jsonl"),
+            "group_data": {n: os.path.join(TP_DIR, f"group{n}", "data") for n in (1, 2)},
+            "captions": os.path.join(TP_DIR, "captions.json"),
+            "group_out": os.path.join(TP_DIR, "groups"),
+            "group_log": os.path.join(TP_DIR, "groups_log.jsonl"),
+            "thresholds": os.path.join(TP_DIR, "thresholds.json")}
     ctx = mp.start_processes(_tp_rank, args=(f"127.0.0.1:{multihost.free_port()}", spec),
                              nprocs=TP_RANKS, join=False, start_method="spawn")
     return spec, ctx
@@ -4067,14 +4182,17 @@ def _tp_reference(spec: dict) -> dict:
     """One process's runs of what the ranks run (in the parent, beside
     them): ``run_sweep`` over the same images at batch TP_IMAGES and at 1
     (batch 1 against batch 2 is one process's own bf16 spread, C5), the same
-    UNet call in bf16 and in f32 on the batch-2 run's pipeline, and the same
-    trainer step whole, with its loss also in f32."""
+    UNet call in bf16 and in f32 on the batch-2 run's pipeline, the same
+    trainer step whole, with its loss also in f32, and each family of
+    TP_GROUPS at batch 1 and 2; first the stop thresholds that the ranks
+    wait for (``_tp_thresholds``)."""
     import dataclasses as dc
 
     from pnpinversion_tpu_torch.runners import run_sweep
     from pnpinversion_tpu_torch.training import trainer as tr
 
-    out = {"sweeps": {}, "eps": {}, "unet_call_s": {}}
+    out = {"thresholds": _tp_thresholds(spec), "sweeps": {}, "eps": {}, "unet_call_s": {}}
+    epsilon = {m: r["epsilon"] for m, r in out["thresholds"].items()}
     for batch in (TP_IMAGES, 1):
         dest = os.path.join(spec["dir"], f"one_x{batch}")
         with _CreateSpy() as spy:
@@ -4115,6 +4233,18 @@ def _tp_reference(spec: dict) -> dict:
     del trainer, tpipe
     gc.collect()
     torch.cuda.empty_cache()
+    # each family on the tp sweep's image at batch 1, and with the next image
+    # at batch 2 (one process's own spread)
+    out["groups"] = {}
+    for method, inner in TP_GROUPS:
+        out["groups"][method] = {}
+        for batch in (TP_GROUP_IMAGES, 2):
+            dest = os.path.join(spec["dir"], f"group_one_x{batch}")
+            row = _tp_group_run(run_sweep.main, _tp_group_argv(spec, method, batch, dest),
+                                inner, epsilon.get(method))
+            if row["done"] != {"images": batch, "batch": batch}:
+                raise AssertionError(f"one-process {method} at batch {batch}: {row['done']}")
+            out["groups"][method][batch] = {**row, "dir": dest}
     return out
 
 
@@ -4123,6 +4253,88 @@ def _jpeg_panels(path: str, size: int) -> np.ndarray:
 
     strip = np.asarray(Image.open(path).convert("RGB")).astype(np.int64)
     return strip.reshape(size, 4, size, 3).transpose(1, 0, 2, 3)  # (panel, H, W, 3)
+
+
+def _tp_launches_match(run: dict, ref: dict) -> bool:
+    """A tp rank's launches against one process's run of the same image:
+    equal, less FLASH_SITES forward launches and the backward's launches per
+    inner step of a loop that stops on a loss (the steps each run took: the
+    sum of its record's decisions); and some kernel launched."""
+    k, k_ref = (sum(n for _, n in r["record"]["decisions"]) for r in (run, ref))
+    got, want = run["launches"], ref["launches"]
+    if k_ref == 0:
+        same = got == want and k == 0
+    else:
+        same = (all(got[n] * k_ref == want[n] * k for n in ("prep", "main", "convert"))
+                and got["fwd"] - FLASH_SITES * k == want["fwd"] - FLASH_SITES * k_ref)
+    return (same and run["f32_launches"] == ref["f32_launches"]
+            and (got["fwd"] > 0 or run["f32_launches"]["fwd"] > 0))
+
+
+def _tp_check_groups(spec: dict, ranks: list, ref: dict, size: int) -> dict:
+    """Each family's tp sweep (TP_GROUPS) against its one-process runs:
+    the strip written once by tp index 0 and the image counted once, the
+    ranks' records equal (their inner losses, stops and panel digests), the
+    loops that stop on a loss stopped before their end at every DDIM step,
+    the launches matched (``_tp_launches_match``), the text and image panels
+    equal and the recon and edit panels' mean |difference| within
+    TP_SPREAD_FACTOR of one process's own (batch 1 against batch 2) plus
+    TP_PANEL_FLOOR, or within TP_FIXED_PANEL_LIMIT where it names the
+    family. Returns each family's numbers; raises on any fault."""
+    from pnpinversion_tpu_torch.runners.run_sweep import FOLDERS
+
+    events = [json.loads(line) for line in open(spec["group_log"])]
+    out, bad = {}, []
+    with open(os.path.join(spec["group_data"][TP_GROUP_IMAGES], "mapping_file.json")) as f:
+        image = next(iter(json.load(f).values()))["image_path"]
+    for method, inner in TP_GROUPS:
+        got = [res["groups"][method] for res in ranks]
+        one, two = ref["groups"][method][TP_GROUP_IMAGES], ref["groups"][method][2]
+        mine = [e for e in events if e.get("method") == method]
+        rel = os.path.join(FOLDERS.get(method, method), "annotation_images", image)
+        tp_p, one_p, two_p = (_jpeg_panels(os.path.join(d, rel), size)
+                              for d in (spec["group_out"], one["dir"], two["dir"]))
+        diff = {k: float(np.abs(tp_p[p] - one_p[p]).mean()) for k, p in (("recon", 2),
+                                                                         ("edit", 3))}
+        spread = {k: float(np.abs(two_p[p] - one_p[p]).mean()) for k, p in (("recon", 2),
+                                                                            ("edit", 3))}
+        limit = {k: TP_FIXED_PANEL_LIMIT.get(method, TP_SPREAD_FACTOR * spread[k]
+                                             + TP_PANEL_FLOOR) for k in diff}
+        row = {"steps": TP_GROUP_STEPS, "tp_s": [g["run_s"] for g in got],
+               "one_process_s": one["run_s"],
+               "one_process_x2_s": two["run_s"], "launches": got[0]["launches"],
+               "f32_launches": got[0]["f32_launches"],
+               "one_process_launches": one["launches"],
+               "one_process_f32_launches": one["f32_launches"],
+               "decisions": got[0]["record"]["decisions"],
+               "one_process_decisions": one["record"]["decisions"],
+               "losses": got[0]["record"]["losses"],
+               "one_process_losses": one["record"]["losses"],
+               "epsilon": ref["thresholds"].get(method, {}).get("epsilon"),
+               "records_equal": got[0]["record"] == got[1]["record"],
+               "panels_mean_abs": diff, "one_process_x1_vs_x2": spread, "limit": limit}
+        out[method] = row
+        checks = {
+            "done": [g["done"] for g in got] == [
+                {"images": TP_GROUP_IMAGES if r == 0 else 0, "images_total": TP_GROUP_IMAGES,
+                 "batch": TP_GROUP_IMAGES, "rank": r, "world": TP_RANKS}
+                for r in range(TP_RANKS)],
+            "log": (sorted(e["key"] for e in mine if e["event"] == "image_done")
+                    == [f"{i:09d}" for i in range(TP_GROUP_IMAGES)]
+                    and [(e["process_index"], e["images_total"]) for e in mine
+                         if e["event"] == "sweep_done"] == [(0, TP_GROUP_IMAGES)]),
+            "records": row["records_equal"] and len(got[0]["record"]["digests"]) == 1,
+            "stops": inner is None or (len(row["decisions"]) == TP_GROUP_STEPS
+                                       and all(n < inner for _, n in row["decisions"])),
+            "launches": spec["device"] != "cuda" or all(_tp_launches_match(g, one)
+                                                        for g in got),
+            "text and image panels": (np.array_equal(tp_p[0], one_p[0])
+                                      and np.array_equal(tp_p[1][:, :-8], one_p[1][:, :-8])),
+            "panels": all(diff[k] <= limit[k] for k in diff)}
+        bad += [f"{method}: {name}" for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tp families: {bad}: {json.dumps(out)[:4000]}")
+    return out
 
 
 def tp_phase(started, size: int = 512) -> dict:
@@ -4138,10 +4350,15 @@ def tp_phase(started, size: int = 512) -> dict:
     TP_F32_EPS_RTOL of one process's; the bf16 eps, the panels (mean |diff|
     of the reconstruction and of the edit) and the loss within
     TP_SPREAD_FACTOR of one process's own bf16 spread plus their floors.
-    ``size`` lets a CPU rehearsal run it at TINY."""
+    Then each family of TP_GROUPS through the same ranks
+    (``_tp_check_groups``). ``size`` lets a CPU rehearsal run it at TINY."""
     t0 = time.perf_counter()
     spec = started[0]
     _mini_pie_bench(TP_DIR, TP_IMAGES, size)
+    for n, data in spec["group_data"].items():
+        _mini_pie_bench(os.path.dirname(data), n, size)
+    with open(spec["captions"], "w") as f:
+        json.dump({f"{i:09d}": TP_CAPTION for i in range(2)}, f)
     _pair_dataset(spec["pairs"], TP_PAIRS, TRAIN_CROP)
     ranks, ref = _mp_run(started, lambda: _tp_reference(spec))
     for res in ranks:
@@ -4219,6 +4436,7 @@ def tp_phase(started, size: int = 512) -> dict:
         bad.append("loss")
     if bad:
         raise AssertionError(f"tp phase: {bad}: {json.dumps(out)[:3000]}")
+    out["groups"] = _tp_check_groups(spec, ranks, ref, size)
     out["phase_s"] = time.perf_counter() - t0
     print("tensor_parallel", json.dumps(out), flush=True)
     return out
@@ -4380,7 +4598,7 @@ def main() -> int:
     assert pipe.device.type == "cuda" and pipe.dtype == torch.bfloat16
     main_path = _timed(main_path_phase, pipe)
     print("main_path", json.dumps({"create_s": t_create, **main_path}), flush=True)
-    batched, batch_out = _timed(batched_phase, pipe, main_path["edit_s_per_image"])
+    batched, batch_out = _timed(batched_phase, pipe)
     print("batched_path", json.dumps(batched), flush=True)
     null_text = _timed(null_text_phase, pipe)
     print("null_text_path", json.dumps(null_text), flush=True)
@@ -4468,6 +4686,15 @@ def main() -> int:
     for r, row in enumerate(tp["train"]["per_rank"]):
         name = f"training step split over tp = {TP_RANKS}, rank {r}, {TRAIN_BATCH} rows"
         fwd_by_path[name], bwd_by_path[name] = row["launches"]["fwd"], row["launches"]["main"]
+    for method, row in tp["groups"].items():
+        name = (f"run_sweep_sharded --tp {TP_RANKS} {method}, rank 0, x{TP_GROUP_IMAGES}, "
+                f"{row['steps']} steps")
+        if row["f32_launches"]["fwd"]:
+            f32_by_path[name] = row["f32_launches"]["fwd"]
+        else:
+            fwd_by_path[name] = row["launches"]["fwd"]
+        if row["launches"]["main"]:
+            bwd_by_path[name] = row["launches"]["main"]
     f32_by_path[f"run_editing_p2p, {ENTRY_RUNNER_IMAGES} images at {ENTRY_STEPS} steps"] = (
         entry["runner"]["launches"]["fwd"])
     fwd_by_path[f"{BLD_STEPS} steps: blended-latent-diffusion"] = bld["launches"]["fwd"]

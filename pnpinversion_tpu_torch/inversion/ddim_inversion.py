@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from pnpinversion_tpu_torch.models.unet import UNet, apply_images
+from pnpinversion_tpu_torch.parallel import agreement
 from pnpinversion_tpu_torch.schedulers.ddim import (
     DDIMSchedule,
     _scalar,
@@ -125,7 +126,9 @@ def _optimise_uncond(unet: UNet, schedule: DDIMSchedule, latent: torch.Tensor, t
     N = uncond.shape[0]
     mu, nu = torch.zeros_like(uncond), torch.zeros_like(uncond)
     active = torch.ones((N, 1, 1, 1), dtype=torch.bool, device=uncond.device)
+    taken = 0
     for j in range(1, num_inner_steps + 1):
+        taken = j
         u = uncond.detach().requires_grad_(True)
         with torch.enable_grad():
             eps_uncond, _ = apply_images(unet, latent, t, u)
@@ -133,6 +136,7 @@ def _optimise_uncond(unet: UNet, schedule: DDIMSchedule, latent: torch.Tensor, t
             d = (ddim_step(schedule, eps, t, latent) - target).float()
             loss = (d * d).reshape(N, -1).mean(dim=1)
             (grad,) = torch.autograd.grad(loss.sum(), u)
+        agreement.losses("uncond_loss", loss)
         with torch.no_grad():
             u_new, mu_new, nu_new = _adam_step(uncond, grad, mu, nu, j, lr)
             uncond, mu, nu = (torch.where(active, a, b) for a, b in
@@ -140,6 +144,7 @@ def _optimise_uncond(unet: UNet, schedule: DDIMSchedule, latent: torch.Tensor, t
             active = active & (loss >= thr).view(N, 1, 1, 1)
         if not active.any():
             break
+    agreement.decision("uncond_inner_steps", taken)
     return uncond
 
 

@@ -26,6 +26,7 @@ from pnpinversion_tpu_torch.control.stylediffusion import StyleStoreControl, Sty
 from pnpinversion_tpu_torch.inversion.ddim_inversion import _adam_step, _schedule_lr_thr
 from pnpinversion_tpu_torch.models.stylediffusion import Params
 from pnpinversion_tpu_torch.models.unet import UNet, apply_images
+from pnpinversion_tpu_torch.parallel import agreement
 from pnpinversion_tpu_torch.schedulers.ddim import (
     DDIMSchedule,
     classifier_free_guidance,
@@ -107,12 +108,15 @@ def train_mappers(unet: UNet, schedule: DDIMSchedule, trajectory: torch.Tensor,
         mu = {k: torch.zeros_like(v) for k, v in mapper.items()}
         nu = {k: torch.zeros_like(v) for k, v in mapper.items()}
         active = torch.ones((n,), dtype=torch.bool, device=latent_cur.device)
+        taken = 0
         for j in range(1, int(inner[i]) + 1):
+            taken = j
             leaves = {k: v.detach().requires_grad_(True) for k, v in mapper.items()}
             with torch.enable_grad():
                 loss = _losses(unet, schedule, latent_cur, t, i, cond_embedding, eps_u, target,
                                gt, img_tokens, leaves, guidance_scale, train_ctrl)
                 grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+            agreement.losses("mapper_loss", loss)
             with torch.no_grad():
                 for (k, v), g in zip(mapper.items(), grads):
                     new, m_new, v_new = _adam_step(v, g, mu[k], nu[k], j, lr)
@@ -122,6 +126,7 @@ def train_mappers(unet: UNet, schedule: DDIMSchedule, trajectory: torch.Tensor,
                 active = active & (loss >= thr)
             if not active.any():
                 break
+        agreement.decision("mapper_inner_steps", taken)
         with torch.no_grad():
             eps2, _ = apply_images(unet, torch.cat([latent_cur, latent_cur], dim=1), t, ctx,
                                    adv_ctrl, {"sd_mapper_i": mapper, "img_tokens": img_tokens},

@@ -37,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompts_file", required=True,
                    help='.jsonl of {"caption","edit","output"} records')
     p.add_argument("--checkpoint_dir", default=None,
-                   help="a converted checkpoint: ROADMAP A13, raises for now")
+                   help="local weights: an HF SD directory or a CompVis .ckpt for the "
+                        "sampler, with clip/ for the filter; random weights without it")
     p.add_argument("--model", default="sd14", choices=["sd14", "sd21"])
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--n_samples", type=int, default=100,

@@ -36,6 +36,7 @@ from pnpinversion_tpu_torch.cli import check_args, save_strip, standard_argparse
 from pnpinversion_tpu_torch.configs import IP2P, SD14, SD21
 from pnpinversion_tpu_torch.control.p2p import make_p2p_control, stack_tensors
 from pnpinversion_tpu_torch.data.pie_bench import PieBenchDataset, load_image
+from pnpinversion_tpu_torch.parallel import agreement
 from pnpinversion_tpu_torch.parallel.sweep import (
     BatchedBLD,
     BatchedDirectInversionP2P,
@@ -105,18 +106,25 @@ class PipelinedSaver:
     """Writes a chunk's strips on a worker thread while the card edits the
     next chunk; ``flush`` waits for the last one (and raises its error).
     With ``write`` False it drops them (a tensor-parallel rank past tp
-    index 0, whose edits its group's first rank writes)."""
+    index 0, whose edits its group's first rank writes). Every chunk's
+    decoded panels go into the rank's record (``parallel/agreement.py``)
+    first, written or not. Each strip's ``image_done`` event carries its
+    chunk's index (``chunk``): a chunk's strips land together, one batched
+    call apart from the next chunk's."""
 
     def __init__(self, size: int, logger: RunLogger, method: str, write: bool = True):
         self.size, self.logger, self.method, self.write = size, logger, method, write
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[concurrent.futures.Future] = None
+        self._pushed = 0
 
     def push(self, chunk, images, recon, edit) -> None:
+        agreement.digest("panels", recon, edit)
         if not self.write:
             return
         self.flush()
-        self._pending = self._pool.submit(self._save, chunk, images, recon, edit)
+        self._pending = self._pool.submit(self._save, chunk, images, recon, edit, self._pushed)
+        self._pushed += 1
 
     def flush(self) -> None:
         pending, self._pending = self._pending, None
@@ -129,14 +137,14 @@ class PipelinedSaver:
         finally:
             self._pool.shutdown()
 
-    def _save(self, chunk, images, recon, edit) -> None:
+    def _save(self, chunk, images, recon, edit, index: int) -> None:
         for i, e in enumerate(chunk):
             item = e["item"]
             text = txt_draw(f"source prompt: {item.source_prompt}\n"
                             f"target prompt: {item.target_prompt}",
                             target_size=(self.size, self.size))
             save_strip(make_strip([text, images[i], recon[i], edit[i]]), e["save_path"])
-            self.logger.log("image_done", key=item.key, method=self.method)
+            self.logger.log("image_done", key=item.key, method=self.method, chunk=index)
             print(f"saved {e['save_path']}", flush=True)
 
 

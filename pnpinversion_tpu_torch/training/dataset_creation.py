@@ -20,9 +20,9 @@ index). It consumes the prompt records of ``training.prompt_dataset``.
   candidate's seed (``PairGenerator.draws``; the JAX package draws them from
   ``PRNGKey(seed)``); ``sample_shared_pair`` takes them as tensors, so tests
   can hand it the values JAX draws.
-- The CLIP filter runs on the device in f32 (ViT-L/14 and its text tower, on
-  random weights until checkpoints load: ROADMAP A13); the thresholds, the
-  sort and the files are host work.
+- The CLIP filter runs on the device in f32 (ViT-L/14 and its text tower:
+  the weights of ``checkpoint_dir``'s ``clip/`` where one is given, random
+  ones without); the thresholds, the sort and the files are host work.
 """
 from __future__ import annotations
 

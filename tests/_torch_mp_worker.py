@@ -9,8 +9,12 @@ Scenarios: ``shard`` (process_shard and allreduce_metrics), ``sweep``
 (``runners.run_sweep_sharded`` at TINY), ``train`` (``EditTrainer`` steps
 with ZeRO and without), ``train_cli`` (the training runner at TINY), ``tp``
 (the tensor-parallel sweep, w8 included, and a training step over a (dp, tp)
-grid). ``launch`` starts two ``shard`` ranks through
-``multihost.launch_local``. CONFIG is a JSON file of the scenario's
+grid), ``tp_sweep`` (``run_sweep_sharded`` of each method given, on the seeded
+weights and JAX's draws of ``install_family``, each run's host decisions and
+panel digests recorded: ``parallel/agreement.py``). ``launch`` starts two ``shard`` ranks through
+``multihost.launch_local``; ``module -m NAME ARGS`` runs a port module's
+main at TINY (``scripts/rehearse_torch.py``'s steps in its test:
+``rehearsal_configs``, the tiny metric towers). CONFIG is a JSON file of the scenario's
 arguments; each rank writes its results under ``out``.
 """
 import argparse
@@ -45,6 +49,140 @@ def tiny_create(cls, config=None, num_ddim_steps=50, checkpoint_dir=None, device
         TINY.unet, in_channels=config.unet.in_channels))
     return _ORIG_CREATE(cls, cfg, seed=0, num_ddim_steps=num_ddim_steps, device="cpu",
                         dtype=torch.float32, quantize=quantize, jax_params=jax_params)
+
+
+def rehearsal_configs() -> dict:
+    """The configs a TINY rehearsal writes and loads its weights at, by the
+    name of the config they stand for: SD1.4's TINY and a TINY SD2.1 (16-dim
+    heads, a GELU text tower)."""
+    import dataclasses
+
+    from pnpinversion_tpu_torch.configs import TINY
+
+    return {"sd14": dataclasses.replace(TINY, name="sd14"),
+            "sd21": dataclasses.replace(
+                TINY, unet=dataclasses.replace(TINY.unet, head_dim=16),
+                text=dataclasses.replace(TINY.text, activation="gelu"), name="sd21")}
+
+
+def _run_module(argv):
+    """``-m NAME ARGS``: the module's ``__main__`` with the sweep's SD1.4 and
+    SD2.1 configs at TINY (their weights load from the given directories)
+    and the evaluator's metric towers tiny."""
+    import runpy
+
+    from pnpinversion_tpu_torch.evaluation import calculator
+    from pnpinversion_tpu_torch.runners import run_sweep
+
+    class TinyCalculator(calculator.MetricsCalculator):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, tiny=True, **kwargs)
+
+    assert argv[0] == "-m", argv
+    configs = rehearsal_configs()
+    run_sweep.SD14, run_sweep.SD21 = configs["sd14"], configs["sd21"]
+    calculator.MetricsCalculator = TinyCalculator
+    sys.argv = [argv[1]] + list(argv[2:])
+    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+
+
+def family_create(cls, config=None, num_ddim_steps=50, checkpoint_dir=None, device=None,
+                  dtype=None, quantize=None, pipes=None, vocab="", **kw):
+    """``SDPipeline.create`` on the CPU in f32 with the seeded weights of
+    ``pipes`` ({config name: (port config, JAX params)}), its word tokenizer
+    having seen ``vocab`` first (so every process numbers the words alike)."""
+    assert checkpoint_dir is None and torch.device(device).type == "cpu", (checkpoint_dir,
+                                                                          device)
+    cfg, params = pipes[config.name]
+    pipe = _ORIG_CREATE(cls, cfg, seed=0, num_ddim_steps=num_ddim_steps, device="cpu",
+                        dtype=torch.float32, quantize=quantize, jax_params=params)
+    pipe.tokenizer.encode(vocab)
+    return pipe
+
+
+class Replay:
+    """A port draw function (generator, shape, dtype) -> tensor that returns
+    ``values`` (the draws JAX makes) in order, from the first again with each
+    new generator (every batched call seeds its own)."""
+
+    def __init__(self, values):
+        self.values, self.gen, self.i = [np.asarray(v, np.float32) for v in values], None, 0
+
+    def __call__(self, generator, shape, dtype):
+        if generator is not self.gen:
+            self.gen, self.i = generator, 0
+        value = self.values[self.i]
+        self.i += 1
+        return torch.from_numpy(value).reshape(tuple(shape)).to(dtype)
+
+
+def _overriding(fn, fixed: dict, *args, **kwargs):
+    """``fn`` with ``fixed``'s keyword arguments over the caller's."""
+    return fn(*args, **{**kwargs, **fixed})
+
+
+def install_family(inputs: dict) -> list:
+    """A tp-family test's settings in this process (a rank, or the test's
+    one-process reference): ``family_create`` for ``SDPipeline.create``; the
+    port's draws replaced by JAX's (``draws``: EF's noise, BLD's and the
+    instruction editors' sequences, pix2pix-zero's posterior noise and
+    rolls); the inner loops' stop threshold ``epsilon`` and steps ``inner``
+    where given (in JAX too, by the test: its null-text and null-latent take
+    the default 10 steps, StyleDiffusion the runner's constant);
+    StyleDiffusion's CLIP tower and networks' start from JAX's. Returns
+    [(owner, name, old value)] to undo it."""
+    import copy
+    import functools
+
+    from pnpinversion_tpu_torch.editors import (
+        bld_editor,
+        instruct_editor,
+        pix2pix_zero_editor,
+        stylediffusion_editor,
+    )
+    from pnpinversion_tpu_torch.inversion import ddim_inversion, ef_ddpm, stylediffusion
+    from pnpinversion_tpu_torch.models.vit import ViT
+    from pnpinversion_tpu_torch.parallel import sweep
+
+    new = {(SDPipeline, "create"): classmethod(functools.partial(
+        family_create, pipes=inputs["pipes"], vocab=inputs["vocab"]))}
+    draws = inputs.get("draws", {})
+    if "ef" in draws:
+        noise = torch.from_numpy(np.asarray(draws["ef"], np.float32))
+        new[(ef_ddpm, "sample_xts_from_x0")] = (
+            lambda generator, schedule, x0: ef_ddpm.xts_from_noise(schedule, x0,
+                                                                 noise.to(x0.dtype)))
+    if "bld" in draws:
+        new[(bld_editor, "draw_noise")] = Replay(draws["bld"])
+    if "instruct" in draws:
+        new[(instruct_editor, "draw_noise")] = Replay(draws["instruct"])
+    if "p2z" in draws:
+        noise, shifts = draws["p2z"]
+        new[(pix2pix_zero_editor, "draw_noise")] = Replay([noise])
+        new[(pix2pix_zero_editor, "draw_shifts")] = lambda generator, size, steps: shifts
+    loops = {k: inputs.get(name) for k, name in (("epsilon", "epsilon"),
+                                                 ("num_inner_steps", "inner"))
+             if inputs.get(name) is not None}
+    if loops:  # over what the batched classes pass
+        for owner, fn in ((sweep, ddim_inversion.null_text_optimization),
+                          (sweep, ddim_inversion.null_latent_offsets),
+                          (stylediffusion_editor, stylediffusion.train_mappers)):
+            new[(owner, fn.__name__)] = functools.partial(_overriding, fn, loops)
+    if "clip" in inputs:
+        clip_cfg, state = inputs["clip"]
+        tower = ViT(clip_cfg)
+        tower.load_state_dict(state)
+        tower = tower.eval().requires_grad_(False)
+        new[(sweep, "make_clip_vision")] = lambda device, config=None, seed=42: copy.deepcopy(
+            tower)  # a fresh tower each time: a tp group splits its own
+        start = inputs["mapper0"]
+        new[(stylediffusion_editor, "initial_mapper")] = lambda clip, images, device: {
+            k: v.expand((images,) + v.shape[1:]).clone() for k, v in start.items()}
+    undo = []
+    for (owner, name), value in new.items():
+        undo.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, value)
+    return undo
 
 
 def _shard(cfg, rank, world):
@@ -165,8 +303,22 @@ def _tp(cfg, rank, world):
     return out
 
 
+def _tp_sweep(cfg, rank, world):
+    """``runners.run_sweep_sharded`` of each of ``runs`` ({method: argv}),
+    with ``install_family``'s settings from ``inputs``, each run recorded."""
+    from pnpinversion_tpu_torch.parallel import agreement
+    from pnpinversion_tpu_torch.runners import run_sweep_sharded
+
+    install_family(torch.load(cfg["inputs"], weights_only=False))  # written by the test
+    out = {}
+    for method, argv in cfg["runs"].items():
+        with agreement.recording() as record:
+            out[method] = {"sweep": run_sweep_sharded.main(argv), "record": record}
+    return out
+
+
 SCENARIOS = {"shard": _shard, "sweep": _sweep, "train": _train, "train_cli": _train_cli,
-             "tp": _tp}
+             "tp": _tp, "tp_sweep": _tp_sweep}
 
 
 def main(argv):
@@ -197,5 +349,10 @@ def main(argv):
 if __name__ == "__main__":
     if sys.argv[1] == "launch":  # two shard ranks started by launch_local
         multihost.launch_local("_torch_mp_worker", ["shard", sys.argv[2]], 2)
+    elif sys.argv[1] == "module":
+        for name in ("jax", "jaxlib", "pnpinversion_tpu"):
+            sys.modules[name] = None
+        torch.set_num_threads(2)
+        _run_module(sys.argv[2:])
     else:
         main(sys.argv[1:])

@@ -1,8 +1,9 @@
 """The PyTorch port imports neither JAX nor anything of the JAX package, nor
 the weight-file packages the GPU host lacks (``safetensors``,
 ``transformers``, ``diffusers``, ``orbax``): every module of
-``pnpinversion_tpu_torch`` (and ``chip_smoke.py``) imports in a fresh
-interpreter where all of them are blocked."""
+``pnpinversion_tpu_torch`` (and ``chip_smoke.py`` and
+``scripts/rehearse_torch.py``) imports in a fresh interpreter where all of
+them are blocked."""
 import os
 import subprocess
 import sys
@@ -10,7 +11,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "pnpinversion_tpu", "safetensors", "transformers", "diffusers",
            "orbax")
 for name in BLOCKED:
@@ -21,6 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(pnpinversion_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+spec = importlib.util.spec_from_file_location("rehearse_torch", "scripts/rehearse_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -71,4 +74,6 @@ def test_port_imports_without_jax():
             "pnpinversion_tpu_torch.parallel.multihost",
             "pnpinversion_tpu_torch.runners.run_sweep_sharded",
             "pnpinversion_tpu_torch.evaluation.sharded", "pnpinversion_tpu_torch.ops.quant",
-            "pnpinversion_tpu_torch.parallel.tensor_parallel"} <= names
+            "pnpinversion_tpu_torch.parallel.tensor_parallel",
+            "pnpinversion_tpu_torch.parallel.agreement",
+            "pnpinversion_tpu_torch.data.seeded"} <= names
