@@ -20,16 +20,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    CTA; TF32 off on both sides);
 4. drive the first path: ``P2PEditor("directinversion+p2p", ...)`` on an
    SD1.4 pipeline at full width (random weights from a seed, bf16, 512², 50
-   DDIM steps), a warm-up edit, a timed edit whose kernel launches are
-   counted, and a per-phase timed edit whose latents are checked;
+   DDIM steps), a warm-up edit at 2 steps (counted by ``utils/mfu.py``),
+   a timed edit whose kernel launches are counted, and a per-phase timed
+   edit whose latents are checked;
 5. drive the batched path: ``BatchedDirectInversionP2P.edit_batch`` on 4
    images (the same workload at 20 steps, the cake prompts), a warm-up
-   batch and a timed batch whose launches are counted, then each image
+   batch at 2 steps (counted) and a timed batch whose launches are
+   counted, then each image
    through the single-image editor and the uint8 difference of the panels,
    and the checks that tell a fault of the batched path from the numerics
    of another batch size (the reconstructions are the VAE round trip; with
-   a prompt pair per image, the images do not interact);
-6. drive null-text-inversion+p2p: a warm-up edit at 2 DDIM steps, then one
+   a prompt pair per image, the images do not interact); then the FLOPs
+   and MFU of both (``mfu_phase``, ``utils/mfu.py``): each edit counted
+   with the flash kernel launched and again through the plain path, equal
+   call by call and at every shape the kernel was entered at; one warm
+   edit of each under torch.profiler for the device's busy and tensor-core
+   time and its idle share; MFU over the timed edits' wall time, the busy
+   and the tensor-core time;
+6. drive null-text-inversion+p2p: a warm-up edit at 2 DDIM steps (one
+   inner step each), then one
    edit at 3 whose launches of every kernel are counted and whose phases
    are timed to a synchronize each; the backward kernels run in its inner
    Adam loop, which differentiates through the UNet; then one counted
@@ -133,8 +142,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward of each metric model over the batch), its CSV within 1e-3 of the
    serial one, seconds per image both ways;
 10. print one JSON line of kernel numbers (launches of each kernel on every
-   path), each phase's seconds, the script's total seconds, then the result
-   line.
+   path), each phase's seconds and their split into set-up (pipelines made
+   and loaded, warm-ups, traces, data written: ``phase_setup``) and work,
+   the script's total seconds, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without CUDA it
 exits non-zero before printing any result.
@@ -150,12 +160,15 @@ import json
 import os
 import re
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from pnpinversion_tpu_torch.utils.mfu import MAIN_PATH_KW, MAIN_PATH_PROMPTS, card_line
+from pnpinversion_tpu_torch.utils.mfu import at_steps as _pipe_at
+from pnpinversion_tpu_torch.utils.mfu import sync_time as _sync_time
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3
@@ -297,12 +310,6 @@ F32_LSE_ATOL = 1e-5
 F32_BWD_RTOL = 1e-4
 H100_F32_FLOPS = 67e12    # FP32 on the CUDA cores, SXM, 700 W
 H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak (the f32 kernels' 3xTF32 products)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 def _event_pair():
@@ -868,18 +875,37 @@ def f32_kernel_phase(timing: bool = True) -> dict:
             "batch_independence": independence, "bwd_batch_independence": bwd_independence}
 
 
-def _sync_time(fn):
-    torch.cuda.synchronize()
+# seconds of set-up in each phase of ``main``, by kind: "create" (pipelines
+# made and checkpoints loaded), "warm-up" (the edits run before a timed one),
+# "trace" (runs under torch.profiler), "data" (files written for a phase);
+# a phase's work is its seconds (PHASE_S) less its set-up
+SETUP_S = collections.defaultdict(lambda: collections.defaultdict(float))
+_PHASE = []  # the phase ``_timed`` runs
+_SETUP_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def _setup(kind: str):
+    """Counts the block's seconds as set-up of the running phase (the
+    outermost block only, so nested set-up counts once)."""
+    _SETUP_DEPTH[0] += 1
     t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    try:
+        yield
+    finally:
+        _SETUP_DEPTH[0] -= 1
+        if _PHASE and not _SETUP_DEPTH[0]:
+            SETUP_S[_PHASE[-1]][kind] += time.perf_counter() - t0
 
 
-SRC = "a round cake with orange frosting on a wooden plate"
-TAR = "a square cake with orange frosting on a wooden plate"
-EDIT_KW = dict(guidance_scale=7.5, blend_word=(("cake",), ("cake",)),
-               eq_params={"words": ("square",), "values": (2.0,)})
+def _warm(fn):
+    """``_sync_time(fn)`` of a warm-up run: its seconds are set-up."""
+    with _setup("warm-up"):
+        return _sync_time(fn)
+
+
+SRC, TAR = MAIN_PATH_PROMPTS  # the main path's edit, the cake prompts
+EDIT_KW = MAIN_PATH_KW
 NULL_TEXT = "null-text-inversion+p2p"
 # DDIM steps of the counted null-text edit: 25 since the MasaCtrl, PnP and
 # EF families joined the script (its 500 inner steps at 50 took ~95 s), 10
@@ -963,6 +989,26 @@ def _check_strip(strip) -> None:
         raise AssertionError(f"strip {strip.shape} {strip.dtype}, want (512, 2048, 3) uint8")
 
 
+FLOP_PARTS = ("fixed", "inversion_call", "scan_call", "scan_window_call")
+
+
+def _counted_warmup(pipe, steps: int, images: int) -> tuple:
+    """The warm-up of the main path's timed edit of ``images`` images: the
+    edit at 2 steps (every shape: a scan step inside the self-replace window
+    and one outside; the shapes do not depend on the steps), run by
+    ``utils/mfu.py::edit_flops``, so it is also the kernel path's FLOP
+    count (extended to ``steps``), which ``mfu_phase`` holds against the
+    plain path's. Returns (the count as JSON, with the shapes the flash
+    kernel was entered at; seconds)."""
+    from pnpinversion_tpu_torch.utils import mfu
+
+    counted, t_warm = _warm(lambda: mfu.edit_flops(pipe, steps=steps, images=images))
+    return {"steps": steps, "images": images, "window_steps": counted.window_steps,
+            "per_image": counted.per_image.as_dict(),
+            "calls": {part: getattr(counted, part).as_dict() for part in FLOP_PARTS},
+            "flash_shapes": sorted(counted.attention_shapes)}, t_warm
+
+
 def main_path_phase(pipe) -> dict:
     """SD1.4 directinversion+p2p at full width on the card, through the
     port's entry points."""
@@ -971,7 +1017,7 @@ def main_path_phase(pipe) -> dict:
     steps = pipe.schedule.num_steps
     editor = P2PEditor(pipe)
     image = _random_images(1234)
-    _, t_warm = _sync_time(lambda: editor("directinversion+p2p", image(), SRC, TAR, **EDIT_KW))
+    counted, t_warm = _counted_warmup(pipe, steps, 1)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     strip, t_edit = _sync_time(lambda: editor("directinversion+p2p", image(), SRC, TAR,
@@ -1001,7 +1047,7 @@ def main_path_phase(pipe) -> dict:
         raise AssertionError(f"latent shapes {tuple(traj.shape)}, {tuple(edit.shape)}")
     if both.shape != (2, 512, 512, 3):
         raise AssertionError(f"decoded {both.shape}")
-    return {"warmup_edit_s": t_warm, "edit_s_per_image": t_edit,
+    return {"warmup_edit_2_steps_s": t_warm, "flops": counted, "edit_s_per_image": t_edit,
             "flash_launches_per_edit": counts["fwd"], "peak_mem_gib": peak_gib,
             "vae_encode_x1_s": t_enc, "text_encode_s": t_text,
             f"invert_{steps}xb1_s": t_inv, f"fused_offsets_edit_{steps}xb3_s": t_scan,
@@ -1010,7 +1056,7 @@ def main_path_phase(pipe) -> dict:
 
 def null_text_phase(pipe, steps: int = NULL_TEXT_STEPS) -> dict:
     """SD1.4 null-text-inversion+p2p at full width on the card: a warm-up
-    edit at 2 DDIM steps, then one edit at ``steps`` whose kernel launches
+    edit at 2 DDIM steps of one inner step each, then one edit at ``steps`` whose kernel launches
     are counted and whose phases (the editor's own methods, wrapped) are each
     timed to a synchronize."""
     from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
@@ -1018,7 +1064,9 @@ def null_text_phase(pipe, steps: int = NULL_TEXT_STEPS) -> dict:
 
     image = _random_images(4321)
     warm = P2PEditor(dataclasses.replace(pipe, schedule=make_ddim_schedule(2)))
-    _, t_warm = _sync_time(lambda: warm(NULL_TEXT, image(), SRC, TAR, **EDIT_KW))
+    # one inner step a DDIM step launches every shape forward and backward
+    _, t_warm = _warm(lambda: warm.edit_null_text(image(), SRC, TAR, num_inner_steps=1,
+                                                  **EDIT_KW))
 
     editor = P2PEditor(dataclasses.replace(pipe, schedule=make_ddim_schedule(steps)))
     seconds, outputs = {}, {}
@@ -1064,7 +1112,8 @@ def null_text_phase(pipe, steps: int = NULL_TEXT_STEPS) -> dict:
         raise AssertionError(f"forward launches {counts['fwd']}, want {want_fwd} "
                              f"= {FLASH_SITES} x (5 x {steps} + {inner})")
     (t_null,), (t_recon, t_edit_scan) = seconds["null_text"], seconds["guided"]
-    return {"steps": steps, "num_inner_steps": NULL_TEXT_INNER, "warmup_edit_2_steps_s": t_warm,
+    return {"steps": steps, "num_inner_steps": NULL_TEXT_INNER,
+            "warmup_edit_2_steps_1_inner_s": t_warm,
             "edit_s_per_image": t_edit, "launches": counts, "inner_steps_total": inner,
             "peak_mem_gib": peak_gib, "vae_encode_x1_s": seconds["encode_image"][0],
             "text_encode_s": seconds["embeds"][0], f"invert_{steps}xb1_s": seconds["invert"][0],
@@ -1270,7 +1319,7 @@ def batched_phase(pipe) -> dict:
     def edit(imgs):
         return sweep.edit_batch(spec, imgs, cond, uncond, 7.5, tensors)
 
-    _, t_warm = _sync_time(lambda: edit(np.stack([image() for _ in range(BATCH)])))
+    counted, t_warm = _counted_warmup(pipe, steps, BATCH)
     imgs = np.stack([image() for _ in range(BATCH)])
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1363,7 +1412,8 @@ def batched_phase(pipe) -> dict:
         lat0 = editor.encode_image(imgs[0])
         nudged = edit_panel((lat0.float() * (1 + 2 ** -7)).to(lat0.dtype))
         sensitivity = _diff(nudged, edit_panel(lat0))
-    stats = {"batch": BATCH, "steps": steps, "warmup_batch_s": t_warm, "batch_s": t_batch,
+    stats = {"batch": BATCH, "steps": steps, "warmup_batch_2_steps_s": t_warm, "flops": counted,
+             "batch_s": t_batch,
             "s_per_image": t_batch / BATCH, "single_image_s": single_s,
             "single_over_batched_per_image": single_s * BATCH / t_batch,
             "flash_launches_per_batch": counts["fwd"], "peak_mem_gib": peak_gib,
@@ -1373,6 +1423,95 @@ def batched_phase(pipe) -> dict:
             "uint8_max_diff_floors_recon_edit": floors,
             "single_edit_max_mean_after_latent_ulp_nudge": sensitivity}
     return stats, {"images": imgs, "recon": recon, "edit": edits}
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """Every attention site takes the plain path (``ops/attention.py``'s
+    ``use_flash`` false), as on the CPU."""
+    from pnpinversion_tpu_torch.ops import attention
+
+    use_flash = attention.use_flash
+    attention.use_flash = lambda q, k: False
+    try:
+        yield
+    finally:
+        attention.use_flash = use_flash
+
+
+def _flash_formula_checks(shapes) -> list:
+    """At each (kind, B, H, Sq, Sk, d) the kernel was entered at, the
+    formula against the plain path's products, counted on meta tensors."""
+    from pnpinversion_tpu_torch.ops.attention import apply_probs, attention_probs
+    from pnpinversion_tpu_torch.utils import flops
+
+    rows = []
+    for kind, b, h, sq, sk, d in sorted(shapes):
+        grad = kind == "bwd"
+        q = torch.empty(b, h, sq, d, device="meta", requires_grad=grad)
+        k, v = (torch.empty(b, h, sk, d, device="meta", requires_grad=grad) for _ in "kv")
+        with flops.FlopCounter() as fc:
+            out = apply_probs(attention_probs(q, k, d ** -0.5), v)
+            fwd = fc.count.total
+            if grad:
+                out.backward(torch.empty_like(out))
+        plain = fc.count.total - fwd if grad else fwd
+        formula = flops.attention_flops(kind, q, k)
+        if plain != formula:
+            raise AssertionError(f"flash {kind} at {(b, h, sq, sk, d)}: formula {formula}, "
+                                 f"plain path {plain}")
+        rows.append([kind, b, h, sq, sk, d, formula])
+    return rows
+
+
+def mfu_phase(pipe, main_path: dict, batched: dict) -> dict:
+    """FLOPs and MFU of the main path on the card (``utils/mfu.py``), on
+    the pipeline, the counted warm-ups and the timed edits of
+    ``main_path_phase`` (x1, its steps) and ``batched_phase`` (xBATCH,
+    BATCHED_STEPS):
+
+    - the warm-ups counted each edit at 2 steps with the flash kernel
+      launched (its FLOPs by formula where ``FlashAttention`` enters it);
+      here the same edits are counted through the plain path (every site's
+      products dispatched): the two must be equal call by call (the encode,
+      decode and text tower; the inversion call; the scan call outside and
+      inside the self-replace window), and at every shape the kernel was
+      entered at the formula must equal the plain path's products;
+    - one more warm edit of each under torch.profiler: the device's busy
+      seconds (the union of its kernels' intervals) and tensor-core seconds
+      (GEMM, convolution and flash kernels by name), the idle share against
+      the timed edit's seconds, and MFU against the bf16 dense peak over the
+      timed edit's wall, the busy and the tensor-core time; the card's name
+      and power limit beside them."""
+    from pnpinversion_tpu_torch.utils import mfu
+
+    card = card_line()
+    out = {"card": card, "peak_flops": mfu.H100_BF16_PEAK}
+    shapes = set()
+    runs = (("x1", pipe.schedule.num_steps, main_path["edit_s_per_image"], main_path["flops"]),
+            (f"x{BATCH}", BATCHED_STEPS, batched["batch_s"], batched["flops"]))
+    for name, steps, wall, kernel in runs:
+        images = kernel["images"]
+        with _plain_attention():
+            plain = mfu.edit_flops(pipe, steps=steps, images=images)
+        calls = {part: (kernel["calls"][part]["total"], getattr(plain, part).total)
+                 for part in FLOP_PARTS}
+        if any(a != b for a, b in calls.values()) or not kernel["per_image"]["attention_fwd"] or (
+                plain.total.attention_fwd):
+            raise AssertionError(f"{name}: the kernel path's count is not the plain path's: "
+                                 f"{calls}, attention {kernel['per_image']['attention_fwd']} / "
+                                 f"{plain.total.attention_fwd}")
+        shapes.update(tuple(s) for s in kernel["flash_shapes"])
+        run = mfu.main_path_edit(_pipe_at(pipe, steps), images)
+        with _setup("trace"):
+            traced_wall, activity = mfu.trace_device(run)
+        out[name] = {"steps": steps, "card": card, "flops_per_image_by_kind": kernel["per_image"],
+                     "plain_path_flops_per_image": plain.per_image.total, "counted_calls": calls,
+                     **mfu.mfu_report(kernel["per_image"]["total"] * images, images, wall,
+                                      traced_wall, activity)}
+        print(f"mfu {name}", json.dumps(out[name]), flush=True)
+    out["flash_formula_vs_plain"] = _flash_formula_checks(shapes)
+    return out
 
 
 def batched_variants_phase(pipe, steps: int = 3, n: int = 2, inner: int = 2) -> dict:
@@ -1557,12 +1696,6 @@ def _timed_calls(targets, seconds: dict):
     return restore
 
 
-def _pipe_at(pipe, steps: int):
-    from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
-
-    return dataclasses.replace(pipe, schedule=make_ddim_schedule(steps))
-
-
 def families_phase(pipe) -> dict:
     """MasaCtrl, PnP and edit-friendly DDPM at full SD1.4 width, each family
     on the same 4 images with a cake prompt pair each:
@@ -1593,7 +1726,7 @@ def families_phase(pipe) -> dict:
     rows = {}
     for method in FAMILY_RUNS:
         warm_editor, _, warm_batch = _family(_pipe_at(pipe, 2), method)
-        _, t_warm = _sync_time(lambda: warm_editor(method, imgs[0], *prompts[0]))
+        _, t_warm = _warm(lambda: warm_editor(method, imgs[0], *prompts[0]))
         editor, targets, batch = _family(_pipe_at(pipe, FAMILY_STEPS), method)
         seconds = {}
         restore = _timed_calls(targets, seconds)
@@ -1612,7 +1745,7 @@ def families_phase(pipe) -> dict:
         else:
             _check_launches(method, counts, 1, calls)
 
-        _, t_warm_batch = _sync_time(lambda: warm_batch(imgs, prompts))
+        _, t_warm_batch = _warm(lambda: warm_batch(imgs, prompts))
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         (recon, edits), t_batch = _sync_time(lambda: batch(imgs, prompts))
@@ -1759,7 +1892,9 @@ EDICT_SHORT_STEPS = 5  # of edict+direct_forward (f32 carry)
 EDICT_BATCH_STEPS = 3  # of BatchedEDICT x4, both methods (float64 carry)
 EDICT_ROUND_TRIP_STEPS = 5  # of the strength-1.0 round trips in both precisions
 EDICT_WARMUP_STEPS = 3
-EDICT_TRACE_STEPS = 5  # of the edict+p2p edit traced for the f32 attention's share
+# of the edict+p2p edit traced for the f32 attention's share: the counted
+# edit's, whose untraced wall time the trace reuses
+EDICT_TRACE_STEPS = EDICT_STEPS
 F32_PANEL_TOL = 2  # uint8 levels: an f32 path's batched panels against the editor's
 
 
@@ -1827,24 +1962,28 @@ def _device_trace(fn) -> tuple:
     kernel name, kernel launches by name)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, wall = _sync_time(fn)
-    us, n = collections.Counter(), collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us[e.name] += e.time_range.elapsed_us()
-            n[e.name] += 1
+    from pnpinversion_tpu_torch.utils.mfu import kernel_spans
+
+    with _setup("trace"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = _sync_time(fn)
+        us, n = collections.Counter(), collections.Counter()
+        for name, start, end in kernel_spans(prof):  # the raw events: fast to walk
+            us[name] += end - start
+            n[name] += 1
     if not us:
         raise AssertionError("torch.profiler recorded no device kernel")
     return wall, us, n
 
 
-def edict_trace(pipe, image: np.ndarray, pair) -> dict:
+def edict_trace(pipe, image: np.ndarray, pair, t_plain: float) -> dict:
     """One ``edict+p2p`` edit (float64 carry) at ``EDICT_TRACE_STEPS`` under
     torch.profiler: the f32 forward's device seconds (its main kernel
     ``flash_fwd_f32_kernel`` and its split pass ``flash_fwd_f32_split_kernel``)
     and launches in the trace, their share of the same edit's wall
-    time run without the profiler, and their share of the sum of every
+    time run without the profiler (``t_plain``: ``edict_phase``'s counted
+    edit of the same image and pair, its passes each timed to a
+    synchronize), and their share of the sum of every
     kernel's traced time (that sum exceeded the wall time on the H100: it
     is no busy time, and no idle share is derived from it). The edit makes
     its UNet calls in the 50-step edit's proportions (2 per step of each
@@ -1853,7 +1992,6 @@ def edict_trace(pipe, image: np.ndarray, pair) -> dict:
     from pnpinversion_tpu_torch.editors.edict_editor import EDICTEditor
 
     editor = EDICTEditor(_pipe_at(pipe, EDICT_TRACE_STEPS), "df64")
-    _, t_plain = _sync_time(lambda: editor("edict+p2p", image, *pair))
     wall, us, n = _device_trace(lambda: editor("edict+p2p", image, *pair))
     kernel_sum = sum(us.values()) / 1e6
     split = sum(v for k, v in us.items() if "flash_fwd_f32_split" in k) / 1e6
@@ -1935,7 +2073,7 @@ def edict_phase(pipe) -> dict:
     print("edict_f32_cast_cost", json.dumps(out["f32_cast_cost"]), flush=True)
     imgs, pairs, src, tar, tensors = _edict_inputs(pipe, 31)
     warm = edict_editor.EDICTEditor(_pipe_at(pipe, EDICT_WARMUP_STEPS), "df64")
-    _, t_warm = _sync_time(lambda: warm("edict+p2p", imgs[0], *pairs[0]))
+    _, t_warm = _warm(lambda: warm("edict+p2p", imgs[0], *pairs[0]))
 
     editor = edict_editor.EDICTEditor(_pipe_at(pipe, EDICT_STEPS), "df64")
     passes, seconds = [], {}
@@ -1967,7 +2105,7 @@ def edict_phase(pipe) -> dict:
         "launches": counts, "unet_calls": calls,
         "edit_panel_std": float(strip[:, 3 * size:].std())}
     print("edict", json.dumps(out["edict+p2p"]), flush=True)
-    out["trace"] = edict_trace(pipe, imgs[0], pairs[0])
+    out["trace"] = edict_trace(pipe, imgs[0], pairs[0], t_edit)
     print("edict_trace", json.dumps(out["trace"]), flush=True)
 
     short = edict_editor.EDICTEditor(_pipe_at(pipe, EDICT_SHORT_STEPS), "f32")
@@ -2054,7 +2192,7 @@ def instruct_phase() -> dict:
     editor = InstructEditor(pipe)
     out = {"create_s": t_create}
     for method in VARIANTS:
-        _, t_warm = _sync_time(lambda: editor(method, imgs[0], INSTRUCTIONS[0], steps=2))
+        _, t_warm = _warm(lambda: editor(method, imgs[0], INSTRUCTIONS[0], steps=2))
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         strip, t = _sync_time(lambda: editor(method, imgs[0], INSTRUCTIONS[0],
@@ -2069,7 +2207,7 @@ def instruct_phase() -> dict:
                        "edit_panel_std": float(strip[:, 3 * size:].std()), "strip": strip}
     method = "instruct-pix2pix"
     text = torch.stack([pipe.encode_prompt([s]) for s in INSTRUCTIONS[:BATCH]])
-    _, t_warm = _sync_time(lambda: BatchedInstruct(pipe, steps=2).edit_batch(method, imgs, text))
+    _, t_warm = _warm(lambda: BatchedInstruct(pipe, steps=2).edit_batch(method, imgs, text))
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     edits, t_batch = _sync_time(lambda: BatchedInstruct(pipe).edit_batch(method, imgs, text))
@@ -2299,12 +2437,12 @@ def training_phase() -> dict:
 
 
 F32_DI_STEPS = 10  # DDIM steps of the f32 directinversion+p2p edit (50 before the tp families)
-F32_NULL_TEXT_STEPS = 3  # and of the f32 null-text edit (10 inner steps each)
+F32_NULL_TEXT_STEPS = 2  # and of the f32 null-text edit and its trace (10 inner steps each)
 F32_BWD_KERNELS = {"dq": "flash_bwd_dq_f32_kernel", "dkv": "flash_bwd_dkv_f32_kernel",
                    "split": "flash_bwd_f32_split_kernel"}
 
 
-def f32_null_text_trace(pipe, image: np.ndarray) -> dict:
+def f32_null_text_trace(pipe, image: np.ndarray, t_plain: float, counts: dict) -> dict:
     """One f32 ``null-text-inversion+p2p`` edit at ``F32_NULL_TEXT_STEPS``
     under torch.profiler (at 1 step the random-weight edit stops after one
     inner step, so its trace would hold one backward UNet call among six
@@ -2314,15 +2452,14 @@ def f32_null_text_trace(pipe, image: np.ndarray) -> dict:
     launches in the trace against the same edit's count without the
     profiler (one dQ and one dK/dV per differentiated site per inner step,
     a split pass before each), and their share of the sum of every kernel's
-    traced time and of that edit's wall time."""
+    traced time and of that edit's wall time. The edit without the profiler
+    is ``f32_path_phase``'s counted one on the same image (``t_plain``,
+    ``counts``)."""
     from pnpinversion_tpu_torch.editors.p2p_editor import P2PEditor
     from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
 
     editor = P2PEditor(dataclasses.replace(pipe,
                                            schedule=make_ddim_schedule(F32_NULL_TEXT_STEPS)))
-    _reset_counts()
-    _, t_plain = _sync_time(lambda: editor(NULL_TEXT, image, SRC, TAR, **EDIT_KW))
-    counts = _f32_counts()
     wall, us, n = _device_trace(lambda: editor(NULL_TEXT, image, SRC, TAR, **EDIT_KW))
     kernel_sum = sum(us.values()) / 1e6
     by_kernel = {}
@@ -2375,15 +2512,17 @@ def f32_path_phase() -> dict:
         raise AssertionError("an f32 pipeline on the card must run with TF32 off")
     size = pipe.config.image_size
     image = _random_images(4242, size)
-    out = {"create_s": t_create}
+    out, runs = {"create_s": t_create}, {}
     no_bf16 = {"fwd": 0, "prep": 0, "main": 0, "convert": 0}
     for method, steps in (("directinversion+p2p", F32_DI_STEPS),
                           (NULL_TEXT, F32_NULL_TEXT_STEPS)):
         editor = P2PEditor(dataclasses.replace(pipe, schedule=make_ddim_schedule(steps)))
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        strip, t = _sync_time(lambda: editor(method, image(), SRC, TAR, **EDIT_KW))
+        img = image()
+        strip, t = _sync_time(lambda: editor(method, img, SRC, TAR, **EDIT_KW))
         counts, bf16 = _f32_counts(), _counts()
+        runs[method] = (img, t, counts)
         _check_strip(strip)
         inner = counts["dq"] // BWD_SITES
         calls = 2 * steps if method == "directinversion+p2p" else 5 * steps + inner
@@ -2402,7 +2541,7 @@ def f32_path_phase() -> dict:
                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                        "edit_panel_std": float(strip[:, 3 * size:].std())}
         print("f32_path", json.dumps({"method": method, **out[method]}), flush=True)
-    out["f32_null_text_trace"] = f32_null_text_trace(pipe, image())
+    out["f32_null_text_trace"] = f32_null_text_trace(pipe, *runs[NULL_TEXT])
     print("f32_null_text_trace", json.dumps(out["f32_null_text_trace"]), flush=True)
 
     # one UNet call, full f32 against TF32 (cuDNN's convolutions only, PyTorch's
@@ -2702,7 +2841,7 @@ def bld_phase() -> dict:
     targets = [tar for _, tar in CAKE_PROMPTS[:BATCH]]
     calls = bld_unet_calls(BLD_STEPS)
     editor = BlendedLatentDiffusionEditor(pipe)
-    _, t_warm = _sync_time(lambda: BlendedLatentDiffusionEditor(_pipe_at(pipe, 2))(
+    _, t_warm = _warm(lambda: BlendedLatentDiffusionEditor(_pipe_at(pipe, 2))(
         METHOD, imgs[0], masks[0], targets[0]))
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -2719,7 +2858,7 @@ def bld_phase() -> dict:
     def batch(p, images, c=cond):
         return BatchedBLD(p).edit_batch(images, lat_masks, c, 7.5)
 
-    _, t_warm_batch = _sync_time(lambda: batch(_pipe_at(pipe, 2), imgs))
+    _, t_warm_batch = _warm(lambda: batch(_pipe_at(pipe, 2), imgs))
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     edits, t_batch = _sync_time(lambda: batch(pipe, imgs))
@@ -2792,7 +2931,7 @@ def blip_phase(imgs: np.ndarray) -> tuple:
     if tok.sep_token_id != cfg.sep_token_id or tok.vocab["[DEC]"] != cfg.bos_token_id:
         raise AssertionError("the generated vocab does not match BLIP's special ids")
     cap, t_create = _sync_time(lambda: BlipCaptioner.random_init(0, tok, BLIP_VIT_B16_384, cfg))
-    _, t_warm = _sync_time(lambda: cap.caption_batch(imgs[:1]))
+    _, t_warm = _warm(lambda: cap.caption_batch(imgs[:1]))
     torch.cuda.reset_peak_memory_stats()
     captions, t_cap = _sync_time(lambda: cap.caption_batch(imgs))
     again, t_again = _sync_time(lambda: cap.caption_batch(imgs))
@@ -2823,8 +2962,8 @@ def blip_phase(imgs: np.ndarray) -> tuple:
 def pix2pix_zero_phase(pipe) -> dict:
     """pix2pix-zero at full SD1.4 width on 4 images: BLIP captions them
     (``blip_phase``); one counted edit of each method at ``P2Z_STEPS``
-    through the editor with the image's caption injected (after a warm-up at
-    2), timed per phase (the regularised inversion, of which the noise
+    through the editor with the image's caption injected (after one warm-up
+    at 2 for both), timed per phase (the regularised inversion, of which the noise
     regularisation, and the edit), peak memory; ``BatchedPix2PixZero`` on the
     4 images (their captions and a prompt pair each) at ``P2Z_STEPS``:
     seconds per image, launches, peak memory, each image's panels against
@@ -2847,9 +2986,11 @@ def pix2pix_zero_phase(pipe) -> dict:
     # backward passes, each after its own forward
     calls, k = 3 * P2Z_STEPS, (P2Z_STEPS, P2Z_STEPS)
     batched = ped.METHODS[1]
+    # one warm-up for both methods: they launch the same shapes
+    _, t_warm = _warm(lambda: ped.Pix2PixZeroEditor(_pipe_at(pipe, 2))(
+        ped.METHODS[0], imgs[0], *prompts[0], caption=captions[0]))
+    out["warmup_edit_2_steps_s"] = t_warm
     for method in ped.METHODS:
-        _, t_warm = _sync_time(lambda: ped.Pix2PixZeroEditor(_pipe_at(pipe, 2))(
-            method, imgs[0], *prompts[0], caption=captions[0]))
         seconds = {}
         restore = _timed_calls([(ped, "p2z_invert"), (ped, "p2z_edit"),
                                 (p2z, "regularize_noise")], seconds)
@@ -2866,14 +3007,14 @@ def pix2pix_zero_phase(pipe) -> dict:
         if method == batched:
             singles = [strip] + [editor(method, imgs[i], *prompts[i], caption=captions[i])
                                  for i in range(1, BATCH)]
-        out[method] = {"warmup_edit_2_steps_s": t_warm, "edit_s_per_image": t_edit,
+        out[method] = {"edit_s_per_image": t_edit,
                        "phase_s": seconds, "launches": counts, "unet_calls": calls + k[0],
                        "backward_passes": P2Z_STEPS, "peak_mem_gib": peak,
                        "edit_panel_std": float(strip[:, 3 * size:].std())}
     cond = torch.stack([pipe.encode_prompt([c]) for c in captions])
     dirs = torch.stack([ped.construct_direction(pipe, [s], [t]) for s, t in prompts])
     method = batched
-    _, t_warm_batch = _sync_time(lambda: BatchedPix2PixZero(_pipe_at(pipe, 2)).edit_batch(
+    _, t_warm_batch = _warm(lambda: BatchedPix2PixZero(_pipe_at(pipe, 2)).edit_batch(
         method, imgs, cond, dirs))
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -2918,7 +3059,7 @@ def stylediffusion_phase(pipe) -> dict:
     clip, t_clip = _sync_time(lambda: sde.make_clip_vision(pipe.device))
     editor = sde.StyleDiffusionEditor(short, clip)
     method = sde.METHOD
-    _, t_warm = _sync_time(lambda: sde.StyleDiffusionEditor(_pipe_at(pipe, 2), clip)(
+    _, t_warm = _warm(lambda: sde.StyleDiffusionEditor(_pipe_at(pipe, 2), clip)(
         method, imgs[0], *prompts[0], num_inner_steps=1))
     most = int(inner_steps_schedule(SD_STEPS, SD_INNER).sum())
     # UNet calls per step besides the inner ones: inversion, the uncond eps,
@@ -2957,7 +3098,7 @@ def stylediffusion_phase(pipe) -> dict:
         return BatchedStyleDiffusion(p, clip, num_inner_steps=k).edit_batch(
             controls[0][0].spec, imgs, cond_src, cond2, tensors)
 
-    _, t_warm_batch = _sync_time(lambda: batch(_pipe_at(pipe, 2), 1))
+    _, t_warm_batch = _warm(lambda: batch(_pipe_at(pipe, 2), 1))
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     (recon, edits), t_batch = _sync_time(lambda: batch(short, SD_INNER))
@@ -2999,8 +3140,9 @@ def _mini_pie_bench(root: str, n: int, size: int) -> str:
 
     prompts = [(src.replace("round", "[round]"), tar.replace("square", "[square]"),
                 "make the cake square", "cake cake") for src, tar in CAKE_PROMPTS]
-    return seeded.mini_pie_bench(root, n, size, seed=8080, prompts=prompts, key="{:09d}",
-                                 category=lambda i: int(i >= ENTRY_RUNNER_IMAGES))
+    with _setup("data"):
+        return seeded.mini_pie_bench(root, n, size, seed=8080, prompts=prompts, key="{:09d}",
+                                     category=lambda i: int(i >= ENTRY_RUNNER_IMAGES))
 
 
 class _CreateSpy:
@@ -3101,9 +3243,10 @@ def entry_points_phase(config=None, steps: int = ENTRY_STEPS, device: str = "cud
         seeded_pipe = SDPipeline.create(config, seed=13, device=device, dtype=torch.float32)
         seeded = {"unet": seeded_pipe.unet, "vae": seeded_pipe.vae,
                   "text": seeded_pipe.text_encoder}
-        nbytes, t_write = _sync_time(lambda: seeded_data.write_hf_checkpoint(ckpt, seeded))
-        seeded_data.bpe_vocab(os.path.join(ckpt, "tokenizer"),
-                              [t for p in CAKE_PROMPTS for t in p])
+        with _setup("data"):
+            nbytes, t_write = _sync_time(lambda: seeded_data.write_hf_checkpoint(ckpt, seeded))
+            seeded_data.bpe_vocab(os.path.join(ckpt, "tokenizer"),
+                                  [t for p in CAKE_PROMPTS for t in p])
         size = config.image_size
         data = _mini_pie_bench(ENTRY_DIR, BATCH, size)
         out.update(checkpoint_gb=nbytes / 1e9, write_s=t_write)
@@ -3268,6 +3411,11 @@ MP_TIMEOUT_S = 600.0  # the ranks' deadline: past it they are ended and the phas
 
 def _pair_dataset(root: str, n: int, res: int) -> str:
     """An ip2p seeds.json dataset of n seeded random JPEG pairs at res^2."""
+    with _setup("data"):
+        return _write_pairs(root, n, res)
+
+
+def _write_pairs(root: str, n: int, res: int) -> str:
     from PIL import Image
 
     rng = np.random.default_rng(MP_SEED)
@@ -4553,10 +4701,44 @@ PHASE_S = {}  # seconds of each phase of ``main``, printed before the kernels li
 
 
 def _timed(phase, *args, **kwargs):
-    """``phase(*args, **kwargs)``, its seconds kept in PHASE_S under its name."""
+    """``phase(*args, **kwargs)``, its seconds kept in PHASE_S under its name
+    (its set-up in SETUP_S)."""
+    _PHASE.append(phase.__name__)
     t0 = time.perf_counter()
-    out = phase(*args, **kwargs)
-    PHASE_S[phase.__name__] = round(time.perf_counter() - t0, 1)
+    try:
+        out = phase(*args, **kwargs)
+    finally:
+        PHASE_S[phase.__name__] = round(time.perf_counter() - t0, 1)
+        _PHASE.pop()
+        setup = {k: round(v, 1) for k, v in SETUP_S[phase.__name__].items()}
+        print(f"phase {phase.__name__} {PHASE_S[phase.__name__]}s set-up {json.dumps(setup)}",
+              flush=True)
+    return out
+
+
+def _timed_creates() -> None:
+    """Every ``SDPipeline.create`` from here on (the phases', the in-process
+    runners') counts as set-up of the running phase."""
+    from pnpinversion_tpu_torch.pipeline import SDPipeline
+
+    create = SDPipeline.__dict__["create"].__func__
+
+    def timed(cls, *args, **kwargs):
+        with _setup("create"):
+            return create(cls, *args, **kwargs)
+
+    SDPipeline.create = classmethod(timed)
+
+
+def setup_split() -> dict:
+    """Each phase's seconds as set-up (by kind) and work, and the sums."""
+    out, sums = {}, collections.Counter()
+    for phase, total in PHASE_S.items():
+        kinds = {k: round(v, 1) for k, v in SETUP_S[phase].items()}
+        setup = round(sum(SETUP_S[phase].values()), 1)
+        out[phase] = {"s": total, "setup_s": setup, "work_s": round(total - setup, 1), **kinds}
+        sums.update({"s": total, "setup_s": setup, "work_s": total - setup, **SETUP_S[phase]})
+    out["all_phases"] = {k: round(v, 1) for k, v in sums.items()}
     return out
 
 
@@ -4594,12 +4776,17 @@ def main() -> int:
     bwd = _timed(bwd_kernel_phase)
     f32 = _timed(f32_kernel_phase)
     _record_path_shapes()
+    _timed_creates()
     pipe, t_create = _sync_time(lambda: SDPipeline.create(SD14, seed=0, num_ddim_steps=50))
+    PHASE_S["sd14_pipeline"] = round(t_create, 1)
+    SETUP_S["sd14_pipeline"]["create"] = t_create
     assert pipe.device.type == "cuda" and pipe.dtype == torch.bfloat16
     main_path = _timed(main_path_phase, pipe)
     print("main_path", json.dumps({"create_s": t_create, **main_path}), flush=True)
     batched, batch_out = _timed(batched_phase, pipe)
     print("batched_path", json.dumps(batched), flush=True)
+    mfu = _timed(mfu_phase, pipe, main_path, batched)
+    print("mfu", json.dumps({k: mfu[k] for k in ("card", "flash_formula_vs_plain")}), flush=True)
     null_text = _timed(null_text_phase, pipe)
     print("null_text_path", json.dumps(null_text), flush=True)
     ddim = _timed(ddim_phase, pipe)
@@ -4729,6 +4916,7 @@ def main() -> int:
         *bwd_entries, *_f32_entries(f32, f32_path, f32_by_path),
     ]}), flush=True)
     print("phase_seconds", json.dumps(PHASE_S), flush=True)
+    print("phase_setup", json.dumps(setup_split()), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

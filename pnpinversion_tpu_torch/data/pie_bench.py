@@ -2,9 +2,11 @@
 the mapping-file reader, the RLE mask codec and image loading, in numpy and
 PIL. The port's own copy: it imports nothing of the JAX package.
 
-The mask decode keeps the JAX package's numpy semantics (an f64 buffer, runs
-cut at the end of the image, the boundary rows and columns forced to 1); the
-JAX package's optional C++ decoder (``data/_native.py``) is not ported.
+The mask decode keeps the JAX package's semantics (an f64 buffer, runs cut at
+the end of the image, the boundary rows and columns forced to 1). At the JAX
+package's threshold, 4096 pixels and more, it takes the C++ decoder
+(``data/_native.py``, built at first use; a failed build raises); below it,
+the numpy loop, which is also the decoder's plain version.
 """
 from __future__ import annotations
 
@@ -16,17 +18,30 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 from PIL import Image
 
+from pnpinversion_tpu_torch.data import _native
+
+NATIVE_MIN_PIXELS = 4096  # the JAX package's threshold for its C++ decoder
+
+
+def rle_decode_reference(enc: np.ndarray, length: int) -> np.ndarray:
+    """The decode's plain version: [start, len] pairs (n, 2) -> a flat
+    {0, 1} f64 mask, each run cut at the end."""
+    mask = np.zeros((length,), dtype=np.float64)
+    for start, run in enc:
+        splice = min(int(run), length - int(start))
+        if splice > 0:
+            mask[start : start + splice] = 1
+    return mask
+
 
 def mask_decode(encoded_mask: Sequence[int], image_shape=(512, 512)) -> np.ndarray:
     """Decode [start0, len0, start1, len1, ...] run-length pairs to a {0, 1}
     f64 mask. The boundary rows and columns are forced to 1, the reference
     harness's workaround for annotation errors."""
     length = image_shape[0] * image_shape[1]
-    mask = np.zeros((length,), dtype=np.float64)
-    for start, run in np.asarray(encoded_mask, dtype=np.int64).reshape(-1, 2):
-        splice = min(int(run), length - int(start))
-        if splice > 0:
-            mask[start : start + splice] = 1
+    enc = np.asarray(encoded_mask, dtype=np.int64).reshape(-1, 2)
+    mask = (_native.rle_decode(enc, length) if length >= NATIVE_MIN_PIXELS
+            else rle_decode_reference(enc, length))
     mask = mask.reshape(image_shape[0], image_shape[1])
     mask[0, :] = 1
     mask[-1, :] = 1

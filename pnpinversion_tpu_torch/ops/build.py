@@ -1,10 +1,13 @@
-"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+"""Builds the port's kernels and loads them with ctypes: the CUDA kernels
+with nvcc, the host's C++ data kernels (``csrc/data_ops.cpp``) with g++.
 
-Each ``csrc/<name>.cu`` is compiled on first use into one shared library with
-a plain C interface, under ``build/torch_kernels/`` at the root of the
-checkout (listed in .gitignore). The file name carries a hash of the source,
-the headers of ``csrc/`` it may include and the flags, so an edited source or
-header is rebuilt and a stale library is never loaded. Nothing here runs at
+Each ``csrc/<name>.cu`` (``<name>.cpp``) is compiled on first use into one
+shared library with a plain C interface, under ``build/torch_kernels/`` at
+the root of the checkout (listed in .gitignore). The file name carries a hash
+of the source, the headers of ``csrc/`` it may include and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded; the
+finished file is moved into place with ``os.replace``, so processes that
+build the same library at once never load half a file. Nothing here runs at
 import time: the CPU tests import every module of the port on a machine
 without nvcc.
 """
@@ -14,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -26,6 +30,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# no -march=native: build/ travels with the checkout to other hosts; no
+# contraction into FMAs, so the bilinear resize rounds as the plain double
+# arithmetic on every host
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
 
 
 def nvcc() -> str:
@@ -92,3 +100,37 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of ``csrc/<name>.cu``, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def host_library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compiles ``csrc/<name>.cpp`` with the host's g++ unless its library
+    exists; raises with g++'s output when it fails or there is no g++."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {name}.cpp needs a host C++ compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, str(CSRC / f"{name}.cpp")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ failed for {name}.cpp (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cpp``, built first if needed."""
+    return ctypes.CDLL(str(build_host(name)))

@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 
 from pnpinversion_tpu_torch.ops import build
+from pnpinversion_tpu_torch.utils.flops import counted_attention
 
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
@@ -818,11 +819,14 @@ F32_WRAPPERS = (flash_attention_fwd_f32, flash_attention_fwd_f32_split,
 class FlashAttention(torch.autograd.Function):
     """O = softmax(scale q k^T) v, differentiable in q, k and v: the forward
     kernel of the inputs' dtype saves (q, k, v, O, LSE) and the backward runs
-    that dtype's backward kernels (the plain versions on CPU tensors)."""
+    that dtype's backward kernels (the plain versions on CPU tensors). The
+    one place the kernels are entered, so the FLOP count takes them here by
+    formula (``utils/flops.py::counted_attention``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        out, lse = flash_attention_fwd(q, k, v, scale)
+        with counted_attention("fwd", q, k):
+            out, lse = flash_attention_fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out
@@ -830,7 +834,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, out, lse, do, ctx.scale) + (None,)
+        with counted_attention("bwd", q, k):
+            grads = flash_attention_bwd(q, k, v, out, lse, do, ctx.scale)
+        return grads + (None,)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,8 +1,8 @@
 """The PyTorch port imports neither JAX nor anything of the JAX package, nor
 the weight-file packages the GPU host lacks (``safetensors``,
 ``transformers``, ``diffusers``, ``orbax``): every module of
-``pnpinversion_tpu_torch`` (and ``chip_smoke.py`` and
-``scripts/rehearse_torch.py``) imports in a fresh interpreter where all of
+``pnpinversion_tpu_torch`` (and ``chip_smoke.py``, ``scripts/rehearse_torch.py``
+and ``scripts/mfu_torch.py``) imports in a fresh interpreter where all of
 them are blocked."""
 import os
 import subprocess
@@ -22,8 +22,9 @@ names = [m.name for m in pkgutil.walk_packages(pnpinversion_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-spec = importlib.util.spec_from_file_location("rehearse_torch", "scripts/rehearse_torch.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for script in ("rehearse_torch", "mfu_torch"):
+    spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -76,4 +77,6 @@ def test_port_imports_without_jax():
             "pnpinversion_tpu_torch.evaluation.sharded", "pnpinversion_tpu_torch.ops.quant",
             "pnpinversion_tpu_torch.parallel.tensor_parallel",
             "pnpinversion_tpu_torch.parallel.agreement",
-            "pnpinversion_tpu_torch.data.seeded"} <= names
+            "pnpinversion_tpu_torch.data.seeded", "pnpinversion_tpu_torch.utils.flops",
+            "pnpinversion_tpu_torch.utils.mfu",
+            "pnpinversion_tpu_torch.data._native"} <= names
