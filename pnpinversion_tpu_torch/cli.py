@@ -9,14 +9,18 @@ each method's 4-panel strip under
 (``cuda`` unless ``cpu`` is asked for; without CUDA it raises). ``--quant
 w8`` stores the UNet's matmul weights int8 (``ops/quant.py``; without the
 flag ``PNPI_QUANT`` decides, as in the JAX package); ``--profile_dir``
-writes a ``torch.profiler`` trace of the first edited image. The JAX
-module's compile-cache set-up has no counterpart.
+writes a ``torch.profiler`` trace of the first edited image (the sweep's:
+of its first chunk), the program's ``pnpi.*`` spans in it, and the spans and
+counters again, the strip writer's among them, in ``spans_<pid>.json``
+(``utils/observability.py``). The JAX module's compile-cache set-up has no
+counterpart.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -24,7 +28,8 @@ from PIL import Image
 
 from pnpinversion_tpu_torch.data.pie_bench import PieBenchDataset
 from pnpinversion_tpu_torch.utils.device import resolve_device
-from pnpinversion_tpu_torch.utils.observability import RunLogger
+from pnpinversion_tpu_torch.utils import observability
+from pnpinversion_tpu_torch.utils.observability import RunLogger, span
 
 
 def standard_argparser(default_methods: Sequence[str]) -> argparse.ArgumentParser:
@@ -45,7 +50,8 @@ def standard_argparser(default_methods: Sequence[str]) -> argparse.ArgumentParse
     p.add_argument("--run_log", type=str, default=None,
                    help="JSONL run log (per-image timings/errors)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="torch.profiler trace dir (profiles the first edited image)")
+                   help="torch.profiler trace dir (profiles the first edited image, "
+                        "or the sweep's first chunk)")
     p.add_argument("--quant", type=str, default=None, choices=["none", "w8"],
                    help="weight-only int8 UNet weights (ops/quant.py); unset: $PNPI_QUANT")
     p.add_argument("--device", type=str, default=None,
@@ -75,7 +81,9 @@ def make_pipeline(args, config):
 @contextlib.contextmanager
 def profile_trace(trace_dir: Optional[str]):
     """A ``torch.profiler`` trace (CPU and CUDA activity) of the block,
-    written to ``trace_dir`` as a Chrome trace; nothing without a dir."""
+    written to ``trace_dir`` as a Chrome trace, and beside it the program's
+    spans and counters of the block (``observability.write``); nothing
+    without a dir."""
     if not trace_dir:
         yield
         return
@@ -85,9 +93,11 @@ def profile_trace(trace_dir: Optional[str]):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    since, before = time.time_ns(), observability.counters()
     with torch.profiler.profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{os.getpid()}.json"))
+    observability.write(os.path.join(trace_dir, f"spans_{os.getpid()}.json"), since, before)
 
 
 def save_strip(strip: np.ndarray, save_path: str) -> None:
@@ -113,8 +123,10 @@ def run_benchmark(args, edit_fn: Callable, image_save_paths: Dict[str, str]) -> 
             print(f"editing image [{item.image_path}] with [{edit_method}]")
             np.random.seed(1234)
             with logger.image(item.key, edit_method):
-                with profile_trace(None if profiled else profile_dir):
+                with profile_trace(None if profiled else profile_dir), \
+                        span("pnpi.runner.image", request=item.key, method=edit_method):
                     strip = edit_fn(edit_method, item)
                 profiled = profiled or bool(profile_dir)
-            save_strip(strip, save_path)
+            with span("pnpi.runner.save_strip", request=item.key):
+                save_strip(strip, save_path)
             print("finish")

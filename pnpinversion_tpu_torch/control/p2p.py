@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from pnpinversion_tpu_torch.control.base import AttnSite, BaseControl
 from pnpinversion_tpu_torch.ops.attention import apply_probs, attention_probs, fused_attention
 from pnpinversion_tpu_torch.utils import text as text_utils
+from pnpinversion_tpu_torch.utils.observability import host_sync
 
 SELF_EDIT_MAX_SEQ = 32 * 32  # P2P's self-attention replace applies at <= 32^2 maps
 LB_START = 0.2  # LocalBlend starts after this fraction of the steps
@@ -186,6 +187,8 @@ def make_p2p_control(
     )
 
     def tensor(x, dtype=torch.float32):
+        if device is not None:
+            host_sync("control", device)
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     tensors = {"cross_replace_alpha": tensor(text_utils.get_time_words_attention_alpha(

@@ -6,9 +6,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image
+from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image, to_host
 from pnpinversion_tpu_torch.pipeline import SDPipeline
 from pnpinversion_tpu_torch.utils.image import load_image, make_strip, txt_draw
+from pnpinversion_tpu_torch.utils.observability import host_sync
 
 
 class Editor:
@@ -23,6 +24,7 @@ class Editor:
     def encode_image(self, image: np.ndarray, dtype=None) -> torch.Tensor:
         """uint8 (H, W, 3) -> scaled latent (1, h, w, 4), encoded in ``dtype``
         (the pipeline's by default)."""
+        host_sync("images", self.pipe.device)
         img = torch.as_tensor(np.ascontiguousarray(image), device=self.pipe.device)
         return image_to_latent(self.pipe.vae, img, dtype=dtype or self.pipe.dtype)
 
@@ -30,7 +32,7 @@ class Editor:
         """(B, h, w, 4) -> uint8 (B, H, W, 3) on the host, decoded in the
         latents' dtype (f32 for EF's, EDICT's and the instruction editors'
         latents, whatever the pipeline's)."""
-        return latent_to_image(self.pipe.vae, latents).cpu().numpy()
+        return to_host(latent_to_image(self.pipe.vae, latents))
 
     def strip(self, prompt_src, prompt_tar, image_gt, recon, edit) -> np.ndarray:
         size = self.pipe.config.image_size

@@ -32,6 +32,7 @@ from pnpinversion_tpu_torch.schedulers.ddim import (
     ddim_step,
 )
 from pnpinversion_tpu_torch.utils.image import make_strip, txt_draw
+from pnpinversion_tpu_torch.utils.observability import host_sync, spanned
 
 METHOD = "blended-latent-diffusion"
 
@@ -53,6 +54,7 @@ def latent_mask(mask, latent_size: int) -> np.ndarray:
     return (np.array(small) >= 0.5).astype(np.float32)[..., None]
 
 
+@spanned("pnpi.edit.sample")
 def bld_sample(unet: UNet, schedule: DDIMSchedule, source_latents: torch.Tensor,
                mask: torch.Tensor, ctx: torch.Tensor, guidance_scale: float,
                generator: Optional[torch.Generator],
@@ -104,6 +106,7 @@ class BlendedLatentDiffusionEditor(Editor):
         pipe = self.pipe
         size = pipe.config.image_size
         image_ori = self.load(image_path)
+        host_sync("mask", pipe.device)
         m = torch.as_tensor(latent_mask(mask, pipe.latent_size), device=pipe.device)
         ctx = pipe.encode_prompt(["", prompt_tar])[None]
         gen = torch.Generator(device=pipe.device).manual_seed(seed)

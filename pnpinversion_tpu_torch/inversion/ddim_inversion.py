@@ -21,10 +21,12 @@ from pnpinversion_tpu_torch.schedulers.ddim import (
     ddim_inverse_step,
     ddim_step,
 )
+from pnpinversion_tpu_torch.utils.observability import spanned
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
+@spanned("pnpi.edit.invert")
 def ddim_invert_loop(unet: UNet, schedule: DDIMSchedule, latent: torch.Tensor,
                      embedding: torch.Tensor) -> torch.Tensor:
     """Single-embedding DDIM inversion. latent (N, 1, h, w, c), embedding
@@ -40,6 +42,7 @@ def ddim_invert_loop(unet: UNet, schedule: DDIMSchedule, latent: torch.Tensor,
     return torch.stack(traj, dim=1)
 
 
+@spanned("pnpi.edit.invert")
 def ddim_invert_loop_cfg(unet: UNet, schedule: DDIMSchedule, latent: torch.Tensor,
                          uncond_embedding: torch.Tensor, cond_embedding: torch.Tensor,
                          guidance_scale: float) -> torch.Tensor:

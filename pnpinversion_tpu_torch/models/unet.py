@@ -27,6 +27,7 @@ from pnpinversion_tpu_torch.models.layers import (
     timestep_embedding,
 )
 from pnpinversion_tpu_torch.ops.attention import controlled_attention
+from pnpinversion_tpu_torch.utils.observability import NULL, count, host_sync, span, tracing
 
 
 def enumerate_sites(config: UNetConfig) -> List[Tuple[AttnSite, AttnSite]]:
@@ -263,51 +264,59 @@ class UNet(nn.Module):
                 step: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
         """Noise prediction eps(x_t, t, context). x: (B, H, W, C_in) NHWC; t:
         one timestep for every row (a number), or a (B,) tensor of one per row
-        (training); returns (eps NHWC, control state)."""
-        cfg = self.config
-        state = {} if state is None else state
-        site_iter = iter(self.sites)
+        (training); returns (eps NHWC, control state). Traced as
+        ``pnpi.unet.call`` (``utils/observability.py``)."""
+        traced = tracing()  # checked once: while off, no span and no count is built
+        with span("pnpi.unet.call", rows=x.shape[0], step=step) if traced else NULL:
+            if traced:
+                count("pnpi.unet.calls")
+                count("pnpi.unet.rows", x.shape[0])
+            cfg = self.config
+            state = {} if state is None else state
+            site_iter = iter(self.sites)
 
-        if not isinstance(t, torch.Tensor):
-            t = torch.tensor([t], dtype=torch.float32, device=x.device)
-        temb = timestep_embedding(t, cfg.block_out_channels[0], flip_sin_to_cos=cfg.flip_sin_to_cos,
-                                  downscale_freq_shift=cfg.freq_shift, dtype=x.dtype)
-        temb = temb.expand(x.shape[0], -1)
-        temb = self.time_embedding.linear_2(silu(self.time_embedding.linear_1(temb)))
+            if not isinstance(t, torch.Tensor):
+                host_sync("timestep", x.device)  # a blocking copy from pageable memory
+                t = torch.tensor([t], dtype=torch.float32, device=x.device)
+            temb = timestep_embedding(t, cfg.block_out_channels[0],
+                                      flip_sin_to_cos=cfg.flip_sin_to_cos,
+                                      downscale_freq_shift=cfg.freq_shift, dtype=x.dtype)
+            temb = temb.expand(x.shape[0], -1)
+            temb = self.time_embedding.linear_2(silu(self.time_embedding.linear_1(temb)))
 
-        h = self.conv_in(x.permute(0, 3, 1, 2))
-        residuals = [h]
-        for i, blk in enumerate(self.down_blocks):
-            for j, rn in enumerate(blk.resnets):
-                h = rn(h, temb)
-                if cfg.cross_attention[i]:
-                    h, state = blk.attentions[j](h, context, next(site_iter), control, tensors,
-                                                 state, step)
-                residuals.append(h)
-            if hasattr(blk, "downsamplers"):
-                h = blk.downsamplers[0].conv(h)
-                residuals.append(h)
+            h = self.conv_in(x.permute(0, 3, 1, 2))
+            residuals = [h]
+            for i, blk in enumerate(self.down_blocks):
+                for j, rn in enumerate(blk.resnets):
+                    h = rn(h, temb)
+                    if cfg.cross_attention[i]:
+                        h, state = blk.attentions[j](h, context, next(site_iter), control, tensors,
+                                                     state, step)
+                    residuals.append(h)
+                if hasattr(blk, "downsamplers"):
+                    h = blk.downsamplers[0].conv(h)
+                    residuals.append(h)
 
-        mid = self.mid_block
-        h = mid.resnets[0](h, temb)
-        h, state = mid.attentions[0](h, context, next(site_iter), control, tensors, state, step)
-        h = mid.resnets[1](h, temb)
+            mid = self.mid_block
+            h = mid.resnets[0](h, temb)
+            h, state = mid.attentions[0](h, context, next(site_iter), control, tensors, state, step)
+            h = mid.resnets[1](h, temb)
 
-        n = len(cfg.block_out_channels)
-        for i, blk in enumerate(self.up_blocks):
-            for j, rn in enumerate(blk.resnets):
-                h = torch.cat([h, residuals.pop()], dim=1)
-                key = f"up_{i}_resnet_{j}"
-                h = rn(h, temb, hook=lambda hh, key=key: control.resnet_hook(
-                    key, hh, tensors, state, step))
-                if cfg.cross_attention[n - 1 - i]:
-                    h, state = blk.attentions[j](h, context, next(site_iter), control, tensors,
-                                                 state, step)
-            if hasattr(blk, "upsamplers"):
-                h = blk.upsamplers[0].conv(nearest_upsample_2x(h))
+            n = len(cfg.block_out_channels)
+            for i, blk in enumerate(self.up_blocks):
+                for j, rn in enumerate(blk.resnets):
+                    h = torch.cat([h, residuals.pop()], dim=1)
+                    key = f"up_{i}_resnet_{j}"
+                    h = rn(h, temb, hook=lambda hh, key=key: control.resnet_hook(
+                        key, hh, tensors, state, step))
+                    if cfg.cross_attention[n - 1 - i]:
+                        h, state = blk.attentions[j](h, context, next(site_iter), control, tensors,
+                                                     state, step)
+                if hasattr(blk, "upsamplers"):
+                    h = blk.upsamplers[0].conv(nearest_upsample_2x(h))
 
-        h = self.conv_out(silu(self.conv_norm_out(h)))
-        return h.permute(0, 2, 3, 1), state
+            h = self.conv_out(silu(self.conv_norm_out(h)))
+            return h.permute(0, 2, 3, 1), state
 
 
 def apply_images(unet: UNet, x: torch.Tensor, t: int, context: torch.Tensor,

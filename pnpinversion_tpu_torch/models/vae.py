@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -21,6 +22,7 @@ from pnpinversion_tpu_torch.models.layers import (
     silu,
 )
 from pnpinversion_tpu_torch.models.unet import Block, Resample, ResnetBlock
+from pnpinversion_tpu_torch.utils.observability import host_sync, span, spanned
 
 
 class VAEAttention(nn.Module):
@@ -147,6 +149,7 @@ class VAE(nn.Module):
         return h.permute(0, 2, 3, 1)
 
 
+@spanned("pnpi.edit.vae_encode")
 def image_to_latent(vae: VAE, image_uint8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 (B, H, W, 3) or (H, W, 3) -> scaled latent (B, h, w, 4)."""
     if image_uint8.dim() == 3:
@@ -154,7 +157,16 @@ def image_to_latent(vae: VAE, image_uint8: torch.Tensor, dtype=torch.float32) ->
     return vae.encode(image_uint8.to(dtype) / 127.5 - 1.0)
 
 
+@spanned("pnpi.edit.vae_decode")
 def latent_to_image(vae: VAE, latents: torch.Tensor) -> torch.Tensor:
     """scaled latents -> uint8 (B, H, W, 3)."""
     img = torch.clamp(vae.decode(latents) / 2 + 0.5, 0.0, 1.0)
     return (img * 255).to(torch.uint8)
+
+
+def to_host(images: torch.Tensor) -> np.ndarray:
+    """Decoded panels (``latent_to_image``'s) as a host array: a copy the
+    host waits for."""
+    with span("pnpi.edit.to_host"):
+        host_sync("panels", images.device)
+        return images.cpu().numpy()

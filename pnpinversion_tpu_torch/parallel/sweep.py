@@ -77,7 +77,7 @@ from pnpinversion_tpu_torch.inversion.ddim_inversion import (
     null_text_optimization,
 )
 from pnpinversion_tpu_torch.inversion.ef_ddpm import ef_forward_process, ef_reverse_process
-from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image
+from pnpinversion_tpu_torch.models.vae import image_to_latent, latent_to_image, to_host
 from pnpinversion_tpu_torch.parallel.tensor_parallel import shard_columns_, shard_pipeline_
 from pnpinversion_tpu_torch.pipeline import SDPipeline
 from pnpinversion_tpu_torch.sampling.p2p_forward import (
@@ -88,6 +88,7 @@ from pnpinversion_tpu_torch.sampling.p2p_forward import (
     proximal_guidance_forward,
 )
 from pnpinversion_tpu_torch.schedulers.ddim import make_ddim_schedule
+from pnpinversion_tpu_torch.utils.observability import host_sync
 
 
 def group_items_by_spec(items: Sequence[dict],
@@ -125,6 +126,7 @@ def _cached_embed(obj, prompts) -> torch.Tensor:
 def _encode_images(pipe: SDPipeline, images_u8, dtype=None) -> torch.Tensor:
     """uint8 (N, H, W, 3) -> latents (N, 1, h, w, 4), encoded in ``dtype``
     (the pipeline's by default)."""
+    host_sync("images", pipe.device)
     images = torch.as_tensor(np.ascontiguousarray(images_u8), device=pipe.device)
     return image_to_latent(pipe.vae, images, dtype=dtype or pipe.dtype)[:, None]
 
@@ -133,7 +135,7 @@ def _decode_pair(pipe: SDPipeline, a: torch.Tensor, b: torch.Tensor):
     """Latents a and b (N, h, w, 4) decoded in one VAE call, in their dtype:
     uint8 (N, H, W, 3) each, on the host."""
     n = a.shape[0]
-    both = latent_to_image(pipe.vae, torch.cat([a, b])).cpu().numpy()
+    both = to_host(latent_to_image(pipe.vae, torch.cat([a, b])))
     return both[:n], both[n:]
 
 
@@ -500,7 +502,7 @@ class BatchedInstruct:
                                   text_cond.to(pipe.device), uncond, self.steps,
                                   cfg_text if cfg_text is not None else ct,
                                   cfg_image if cfg_image is not None else ci, gen, variant)[:, 0]
-        return latent_to_image(pipe.vae, latents).cpu().numpy()
+        return to_host(latent_to_image(pipe.vae, latents))
 
 
 class BatchedBLD:
@@ -530,12 +532,13 @@ class BatchedBLD:
         cond = cond.to(pipe.device)
         N = cond.shape[0]
         uncond = _cached_embed(self, [""])[None].expand(N, -1, -1, -1)
+        host_sync("mask", pipe.device)
         masks = torch.as_tensor(np.asarray(latent_masks, np.float32), device=pipe.device)
         gen = torch.Generator(device=pipe.device).manual_seed(self.seed)
         lat = bld_sample(pipe.unet, pipe.schedule, _encode_images(pipe, images_u8), masks,
                          torch.cat([uncond, cond], dim=1), guidance_scale, gen,
                          self.blending_percentage)
-        return latent_to_image(pipe.vae, lat[:, 0]).cpu().numpy()
+        return to_host(latent_to_image(pipe.vae, lat[:, 0]))
 
 
 class BatchedPix2PixZero:

@@ -40,6 +40,7 @@ from pnpinversion_tpu_torch.models.vae import VAE
 from pnpinversion_tpu_torch.ops.quant import is_quantized, quantize_unet_dots
 from pnpinversion_tpu_torch.schedulers.ddim import DDIMSchedule, make_ddim_schedule
 from pnpinversion_tpu_torch.utils.device import resolve_device, use_full_f32
+from pnpinversion_tpu_torch.utils.observability import host_sync
 from pnpinversion_tpu_torch.utils.tokenizer import default_tokenizer
 
 
@@ -117,6 +118,7 @@ class SDPipeline:
     def tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
         ids = self.tokenizer(list(prompts), padding="max_length",
                              max_length=self.config.text.max_length, truncation=True)["input_ids"]
+        host_sync("token_ids", self.device)
         return torch.as_tensor(np.asarray(ids, dtype=np.int64), device=self.device)
 
     @torch.inference_mode()

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from pnpinversion_tpu_torch.cli import check_args, save_strip, standard_argparser
+from pnpinversion_tpu_torch.cli import check_args, profile_trace, save_strip, standard_argparser
 from pnpinversion_tpu_torch.configs import IP2P, SD14, SD21
 from pnpinversion_tpu_torch.control.p2p import make_p2p_control, stack_tensors
 from pnpinversion_tpu_torch.data.pie_bench import PieBenchDataset, load_image
@@ -52,7 +52,8 @@ from pnpinversion_tpu_torch.parallel.sweep import (
 )
 from pnpinversion_tpu_torch.pipeline import SDPipeline
 from pnpinversion_tpu_torch.utils.image import make_strip, txt_draw
-from pnpinversion_tpu_torch.utils.observability import RunLogger
+from pnpinversion_tpu_torch.utils import observability
+from pnpinversion_tpu_torch.utils.observability import RunLogger, span, spanned
 
 METHODS = (["directinversion+p2p", "ddim+p2p", "negative-prompt-inversion+p2p",
             "null-text-inversion+p2p", "negative-prompt-inversion+proximal-guidance",
@@ -81,14 +82,6 @@ def _pad(t: torch.Tensor, batch: int) -> torch.Tensor:
     return torch.cat([t, t[-1:].expand((batch - t.shape[0],) + t.shape[1:])])
 
 
-def _encode_chunk(pipe, chunk, fields, batch: int) -> torch.Tensor:
-    """One text-encoder call for a chunk: fields(item) -> its prompts.
-    Returns (batch, rows, 77, D), padded."""
-    texts = [t for e in chunk for t in fields(e["item"])]
-    embs = pipe.encode_prompt(texts)
-    return _pad(embs.reshape((len(chunk), len(texts) // len(chunk)) + embs.shape[1:]), batch)
-
-
 def _stack(chunk, batch: int):
     """The chunk's control tensors stacked, padded with the last item's."""
     per = [e["tensors"] for e in chunk]
@@ -102,6 +95,11 @@ def _lanczos(path: str, size: int) -> np.ndarray:
     return np.array(img.resize((size, size), Image.Resampling.LANCZOS))
 
 
+def _prompts(*fields):
+    """texts(chunk, images) for ``_edit_chunks``: these fields of each item."""
+    return lambda chunk, images: [getattr(e["item"], f) for e in chunk for f in fields]
+
+
 class PipelinedSaver:
     """Writes a chunk's strips on a worker thread while the card edits the
     next chunk; ``flush`` waits for the last one (and raises its error).
@@ -109,27 +107,33 @@ class PipelinedSaver:
     index 0, whose edits its group's first rank writes). Every chunk's
     decoded panels go into the rank's record (``parallel/agreement.py``)
     first, written or not. Each strip's ``image_done`` event carries its
-    chunk's index (``chunk``): a chunk's strips land together, one batched
-    call apart from the next chunk's."""
+    chunk's index (``chunk``, the sweep's running count, ``chunks``): a
+    chunk's strips land together, one batched call apart from the next
+    chunk's. With ``profile_dir`` the sweep's first chunk is profiled there
+    (``cli.profile_trace``), its strips written before the profile ends."""
 
-    def __init__(self, size: int, logger: RunLogger, method: str, write: bool = True):
+    def __init__(self, size: int, logger: RunLogger, method: str, write: bool = True,
+                 profile_dir: Optional[str] = None):
         self.size, self.logger, self.method, self.write = size, logger, method, write
+        self.profile_dir = profile_dir
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[concurrent.futures.Future] = None
-        self._pushed = 0
+        self.chunks = 0
 
     def push(self, chunk, images, recon, edit) -> None:
+        index, self.chunks = self.chunks, self.chunks + 1
         agreement.digest("panels", recon, edit)
         if not self.write:
             return
         self.flush()
-        self._pending = self._pool.submit(self._save, chunk, images, recon, edit, self._pushed)
-        self._pushed += 1
+        self._pending = self._pool.submit(self._save, chunk, images, recon, edit, index,
+                                          observability.tracing())
 
     def flush(self) -> None:
         pending, self._pending = self._pending, None
         if pending is not None:
-            pending.result()
+            with span("pnpi.sweep.saver_wait"):
+                pending.result()
 
     def close(self) -> None:
         try:
@@ -137,136 +141,152 @@ class PipelinedSaver:
         finally:
             self._pool.shutdown()
 
-    def _save(self, chunk, images, recon, edit, index: int) -> None:
-        for i, e in enumerate(chunk):
-            item = e["item"]
-            text = txt_draw(f"source prompt: {item.source_prompt}\n"
-                            f"target prompt: {item.target_prompt}",
-                            target_size=(self.size, self.size))
-            save_strip(make_strip([text, images[i], recon[i], edit[i]]), e["save_path"])
-            self.logger.log("image_done", key=item.key, method=self.method, chunk=index)
-            print(f"saved {e['save_path']}", flush=True)
+    def _save(self, chunk, images, recon, edit, index: int, traced: bool) -> None:
+        with span("pnpi.sweep.write_strip", request=index, traced=traced, images=len(chunk)):
+            for i, e in enumerate(chunk):
+                item = e["item"]
+                text = txt_draw(f"source prompt: {item.source_prompt}\n"
+                                f"target prompt: {item.target_prompt}",
+                                target_size=(self.size, self.size))
+                save_strip(make_strip([text, images[i], recon[i], edit[i]]), e["save_path"])
+                self.logger.log("image_done", key=item.key, method=self.method, chunk=index)
+                print(f"saved {e['save_path']}", flush=True)
 
 
-def _chunks(items, batch: int):
+def _edit_chunks(pipe, saver: PipelinedSaver, items, batch: int, load, texts, edit) -> None:
+    """Every sweep's loop: ``items`` ``batch`` at a time, each chunk inside a
+    ``pnpi.sweep.batch`` span whose request id is its index in the sweep:
+    its images loaded (``load(item)``, padded to ``batch`` with the last),
+    its prompts encoded in one text-encoder call (``texts(chunk, images)``:
+    each item's prompts in turn, as many each; (batch, rows, 77, D), padded),
+    ``edit(chunk, images (batch, H, W, 3), cond)`` -> (recon, or None for
+    the editors that have none, edit), and the panels handed to ``saver``."""
     for lo in range(0, len(items), batch):
-        yield items[lo: lo + batch]
+        chunk = items[lo: lo + batch]
+        index = saver.chunks
+        profiled = saver.profile_dir if index == 0 else None
+        with profile_trace(profiled):
+            with span("pnpi.sweep.batch", request=index, index=index, images=len(chunk)):
+                with span("pnpi.sweep.load_images"):
+                    images = [load(e["item"]) for e in chunk]
+                    imgs, _ = pad_batch(images, batch)
+                with span("pnpi.sweep.encode_prompts"):
+                    prompts = texts(chunk, images)
+                    embs = pipe.encode_prompt(prompts)
+                    cond = _pad(embs.reshape((len(chunk), len(prompts) // len(chunk))
+                                             + embs.shape[1:]), batch)
+                with span("pnpi.sweep.edit"):
+                    recon, out = edit(chunk, imgs, cond)
+                saver.push(chunk, images, np.zeros_like(out) if recon is None else recon, out)
+            if profiled:  # the traced chunk's strips written, their span in the trace's file
+                saver.flush()
 
 
 def sweep_p2p(pipe, pending, batch, size, saver, method="directinversion+p2p", tp_group=None):
     from pnpinversion_tpu_torch.editors.p2p_editor import GUIDANCE_GRID
 
     sweep = BatchedDirectInversionP2P(pipe, tp_group=tp_group)
-    for e in pending:
-        blended = e["item"].blended_word
-        ctrl, e["tensors"] = make_p2p_control(
-            [e["item"].source_prompt, e["item"].target_prompt], pipe.tokenizer,
-            num_steps=pipe.schedule.num_steps, cross_replace_steps=0.4, self_replace_steps=0.6,
-            is_replace_controller=False,
-            blend_words=(((blended[0],), (blended[1],)) if blended else None),
-            eq_params=({"words": (blended[1],), "values": (2,)} if blended else None),
-            num_lb_slots=pipe.num_lb_slots, lb_res=pipe.lb_res, latent_size=pipe.latent_size,
-            device=pipe.device)
-        e["spec"] = ctrl.spec
-    uncond = pipe.encode_prompt(["", ""])
+    with span("pnpi.sweep.prepare"):
+        for e in pending:
+            blended = e["item"].blended_word
+            ctrl, e["tensors"] = make_p2p_control(
+                [e["item"].source_prompt, e["item"].target_prompt], pipe.tokenizer,
+                num_steps=pipe.schedule.num_steps, cross_replace_steps=0.4,
+                self_replace_steps=0.6, is_replace_controller=False,
+                blend_words=(((blended[0],), (blended[1],)) if blended else None),
+                eq_params=({"words": (blended[1],), "values": (2,)} if blended else None),
+                num_lb_slots=pipe.num_lb_slots, lb_res=pipe.lb_res,
+                latent_size=pipe.latent_size, device=pipe.device)
+            e["spec"] = ctrl.spec
+        uncond = pipe.encode_prompt(["", ""])
     g = (GUIDANCE_GRID[method.split("_")[-1]]
          if method.startswith("directinversion+p2p_guidance_") else 7.5)
+    # negative-prompt inversion: the source prompt's embedding is the
+    # "uncond" of both rows (npi_interp 0, run_editing_p2p.py:335)
+    npi = method.startswith("negative-prompt-inversion")
     for spec, group in group_items_by_spec(pending, lambda e: e["spec"]).items():
-        for chunk in _chunks(group, batch):
-            images = [load_image(e["item"].image_path, size) for e in chunk]
-            imgs, _ = pad_batch(images, batch)
-            cond = _encode_chunk(pipe, chunk, lambda it: [it.source_prompt, it.target_prompt],
-                                 batch)
-            # negative-prompt inversion: the source prompt's embedding is the
-            # "uncond" of both rows (npi_interp 0, run_editing_p2p.py:335)
-            unc = (cond[:, :1].expand(-1, 2, -1, -1)
-                   if method.startswith("negative-prompt-inversion") else uncond)
-            recon, edit = sweep.edit_batch(spec, imgs, cond, unc, g, _stack(chunk, batch),
-                                           method=method)
-            saver.push(chunk, images, recon, edit)
+        def edit(chunk, imgs, cond, spec=spec):
+            unc = cond[:, :1].expand(-1, 2, -1, -1) if npi else uncond
+            return sweep.edit_batch(spec, imgs, cond, unc, g, _stack(chunk, batch),
+                                    method=method)
+        _edit_chunks(pipe, saver, group, batch, lambda it: load_image(it.image_path, size),
+                     _prompts("source_prompt", "target_prompt"), edit)
 
 
 def sweep_masactrl(pipe, pending, batch, size, saver, method, tp_group=None):
     sweep = BatchedMasaCtrl(pipe, tp_group=tp_group)
-    for chunk in _chunks(pending, batch):
-        images = [load_image(e["item"].image_path, size) for e in chunk]
-        imgs, _ = pad_batch(images, batch)
-        cond = _encode_chunk(pipe, chunk, lambda it: ["", it.target_prompt], batch)
-        recon, edit = sweep.edit_batch(method == "directinversion+masactrl", imgs, cond, 7.5)
-        saver.push(chunk, images, recon, edit)
+    _edit_chunks(pipe, saver, pending, batch, lambda it: load_image(it.image_path, size),
+                 lambda chunk, _: [t for e in chunk for t in ("", e["item"].target_prompt)],
+                 lambda chunk, imgs, cond: sweep.edit_batch(
+                     method == "directinversion+masactrl", imgs, cond, 7.5))
 
 
 def sweep_pnp(pipe, pending, batch, size, saver, method, tp_group=None):
     sweep = BatchedPnP(pipe, tp_group=tp_group)
-    for chunk in _chunks(pending, batch):
-        images = [load_image(e["item"].image_path, size) for e in chunk]
-        imgs, _ = pad_batch(images, batch)
-        both = _encode_chunk(pipe, chunk, lambda it: [it.source_prompt, it.target_prompt], batch)
-        recon, edit = sweep.edit_batch(method, imgs, both[:, :1], both[:, 1:], 7.5)
-        saver.push(chunk, images, recon, edit)
+    _edit_chunks(pipe, saver, pending, batch, lambda it: load_image(it.image_path, size),
+                 _prompts("source_prompt", "target_prompt"),
+                 lambda chunk, imgs, both: sweep.edit_batch(method, imgs, both[:, :1],
+                                                            both[:, 1:], 7.5))
 
 
 def sweep_ef(pipe, pending, batch, size, saver, tp_group=None):
     from pnpinversion_tpu_torch.editors.ef_editor import ef_control
 
     sweep = BatchedEditFriendly(pipe, tp_group=tp_group)
-    for e in pending:
-        ctrl, e["tensors"] = ef_control(pipe, [e["item"].source_prompt, e["item"].target_prompt],
-                                        sweep.schedule.num_steps)
-        e["spec"] = ctrl.spec
+    with span("pnpi.sweep.prepare"):
+        for e in pending:
+            ctrl, e["tensors"] = ef_control(pipe, [e["item"].source_prompt,
+                                                   e["item"].target_prompt],
+                                            sweep.schedule.num_steps)
+            e["spec"] = ctrl.spec
     for spec, group in group_items_by_spec(pending, lambda e: e["spec"]).items():
-        for chunk in _chunks(group, batch):
-            images = [load_image(e["item"].image_path, size) for e in chunk]
-            imgs, _ = pad_batch(images, batch)
-            cond = _encode_chunk(pipe, chunk, lambda it: [it.source_prompt, it.target_prompt],
-                                 batch)
-            recon, edit = sweep.edit_batch(spec, imgs, cond, 1.0, 7.5, _stack(chunk, batch))
-            saver.push(chunk, images, recon, edit)
+        def edit(chunk, imgs, cond, spec=spec):
+            return sweep.edit_batch(spec, imgs, cond, 1.0, 7.5, _stack(chunk, batch))
+        _edit_chunks(pipe, saver, group, batch, lambda it: load_image(it.image_path, size),
+                     _prompts("source_prompt", "target_prompt"), edit)
 
 
 def sweep_bld(pipe, pending, batch, size, saver, tp_group=None):
     from pnpinversion_tpu_torch.editors.bld_editor import latent_mask
 
     sweep = BatchedBLD(pipe, tp_group=tp_group)
-    for chunk in _chunks(pending, batch):
-        # BLD resizes without the crop (run_editing_blended_latent_diffusion.py:58-60)
-        images = [np.array(Image.open(e["item"].image_path).resize(
-            (size, size), Image.BILINEAR))[:, :, :3] for e in chunk]
-        imgs, _ = pad_batch(images, batch)
+
+    def edit(chunk, imgs, cond):
         masks, _ = pad_batch([latent_mask(e["item"].mask, pipe.latent_size) for e in chunk],
                              batch)
-        cond = _encode_chunk(pipe, chunk, lambda it: [it.target_prompt], batch)
-        edit = sweep.edit_batch(imgs, masks, cond)
-        saver.push(chunk, images, np.zeros_like(edit), edit)
+        return None, sweep.edit_batch(imgs, masks, cond)
+    # BLD resizes without the crop (run_editing_blended_latent_diffusion.py:58-60)
+    _edit_chunks(pipe, saver, pending, batch,
+                 lambda it: np.array(Image.open(it.image_path).resize(
+                     (size, size), Image.BILINEAR))[:, :, :3],
+                 _prompts("target_prompt"), edit)
 
 
 def sweep_edict(pipe, pending, batch, size, saver, method, tp_group=None):
     from pnpinversion_tpu_torch.control.edict_p2p import make_edict_p2p_tensors
 
     sweep = BatchedEDICT(pipe, precision="df64", tp_group=tp_group)
-    for e in pending:
-        e["tensors"] = make_edict_p2p_tensors(e["item"].source_prompt, e["item"].target_prompt,
-                                              pipe.tokenizer, pipe.config.text.max_length,
-                                              device=pipe.device)
-    for chunk in _chunks(pending, batch):
-        images = [load_image(e["item"].image_path, size) for e in chunk]
-        imgs, _ = pad_batch(images, batch)
-        both = _encode_chunk(pipe, chunk, lambda it: [it.source_prompt, it.target_prompt], batch)
+    with span("pnpi.sweep.prepare"):
+        for e in pending:
+            e["tensors"] = make_edict_p2p_tensors(e["item"].source_prompt,
+                                                  e["item"].target_prompt, pipe.tokenizer,
+                                                  pipe.config.text.max_length,
+                                                  device=pipe.device)
+
+    def edit(chunk, imgs, both):
         tensors = _stack(chunk, batch) if method == "edict+p2p" else None
-        recon, edit = sweep.edit_batch(method, imgs, both[:, :1], both[:, 1:], tensors)
-        saver.push(chunk, images, recon, edit)
+        return sweep.edit_batch(method, imgs, both[:, :1], both[:, 1:], tensors)
+    _edit_chunks(pipe, saver, pending, batch, lambda it: load_image(it.image_path, size),
+                 _prompts("source_prompt", "target_prompt"), edit)
 
 
 def sweep_instruct(pipe, pending, batch, size, saver, method, tp_group=None):
     sweep = BatchedInstruct(pipe, tp_group=tp_group)
-    for chunk in _chunks(pending, batch):
-        # the instruction editors resize with Lanczos, no crop
-        # (run_editing_instructpix2pix.py:115-118)
-        images = [_lanczos(e["item"].image_path, size) for e in chunk]
-        imgs, _ = pad_batch(images, batch)
-        cond = _encode_chunk(pipe, chunk, lambda it: [it.editing_instruction], batch)
-        edit = sweep.edit_batch(method, imgs, cond)
-        saver.push(chunk, images, np.zeros_like(edit), edit)
+    # the instruction editors resize with Lanczos, no crop
+    # (run_editing_instructpix2pix.py:115-118)
+    _edit_chunks(pipe, saver, pending, batch, lambda it: _lanczos(it.image_path, size),
+                 _prompts("editing_instruction"),
+                 lambda chunk, imgs, cond: (None, sweep.edit_batch(method, imgs, cond)))
 
 
 def sweep_p2z(pipe, pending, batch, size, saver, method, args, tp_group=None):
@@ -278,9 +298,8 @@ def sweep_p2z(pipe, pending, batch, size, saver, method, args, tp_group=None):
     captions = load_captions(args.caption_file)
     captioner = load_captioner(args.checkpoint_dir, pipe.device)
     sweep = BatchedPix2PixZero(pipe, tp_group=tp_group)
-    for chunk in _chunks(pending, batch):
-        images = [_lanczos(e["item"].image_path, size) for e in chunk]
-        imgs, _ = pad_batch(images, batch)
+
+    def texts(chunk, images):
         caps = [captions.get(e["item"].key) for e in chunk]
         missing = [i for i, c in enumerate(caps) if c is None]
         if missing:
@@ -290,12 +309,11 @@ def sweep_p2z(pipe, pending, batch, size, saver, method, args, tp_group=None):
             for i, c in zip(missing, captioner.caption_batch(np.stack([images[i]
                                                                        for i in missing]))):
                 caps[i] = c
-        texts = [t for e, cap in zip(chunk, caps)
-                 for t in (cap, e["item"].source_prompt, e["item"].target_prompt)]
-        embs = pipe.encode_prompt(texts)
-        embs = _pad(embs.reshape((len(chunk), 3) + embs.shape[1:]), batch)
-        recon, edit = sweep.edit_batch(method, imgs, embs[:, 0:1], embs[:, 2:3] - embs[:, 1:2])
-        saver.push(chunk, images, recon, edit)
+        return [t for e, cap in zip(chunk, caps)
+                for t in (cap, e["item"].source_prompt, e["item"].target_prompt)]
+    _edit_chunks(pipe, saver, pending, batch, lambda it: _lanczos(it.image_path, size), texts,
+                 lambda chunk, imgs, embs: sweep.edit_batch(method, imgs, embs[:, 0:1],
+                                                            embs[:, 2:3] - embs[:, 1:2]))
 
 
 def sweep_stylediffusion(pipe, pending, batch, size, saver, tp_group=None):
@@ -303,21 +321,18 @@ def sweep_stylediffusion(pipe, pending, batch, size, saver, tp_group=None):
 
     # 100 inner steps, as the reference runs it
     sweep = BatchedStyleDiffusion(pipe, tp_group=tp_group)
-    for e in pending:
-        # the reference passes no blend words and no equalizer
-        # (run_editing_stylediffusion.py:249-258)
-        ctrl, e["tensors"] = stylediffusion_p2p(pipe, [e["item"].source_prompt,
-                                                       e["item"].target_prompt])
-        e["spec"] = ctrl.spec
+    with span("pnpi.sweep.prepare"):
+        for e in pending:
+            # the reference passes no blend words and no equalizer
+            # (run_editing_stylediffusion.py:249-258)
+            ctrl, e["tensors"] = stylediffusion_p2p(pipe, [e["item"].source_prompt,
+                                                           e["item"].target_prompt])
+            e["spec"] = ctrl.spec
     for spec, group in group_items_by_spec(pending, lambda e: e["spec"]).items():
-        for chunk in _chunks(group, batch):
-            images = [load_image(e["item"].image_path, size) for e in chunk]
-            imgs, _ = pad_batch(images, batch)
-            both = _encode_chunk(pipe, chunk, lambda it: [it.source_prompt, it.target_prompt],
-                                 batch)
-            recon, edit = sweep.edit_batch(spec, imgs, both[:, :1], both, _stack(chunk, batch),
-                                           7.5)
-            saver.push(chunk, images, recon, edit)
+        def edit(chunk, imgs, both, spec=spec):
+            return sweep.edit_batch(spec, imgs, both[:, :1], both, _stack(chunk, batch), 7.5)
+        _edit_chunks(pipe, saver, group, batch, lambda it: load_image(it.image_path, size),
+                     _prompts("source_prompt", "target_prompt"), edit)
 
 
 def auto_batch(method: str, device: torch.device) -> int:
@@ -335,6 +350,7 @@ def sweep_items(args) -> list:
     return list(dataset.items(args.edit_category_list))
 
 
+@spanned("pnpi.sweep.prepare")
 def pending_items(args, method: str, logger: RunLogger, items=None) -> list:
     """The items (``sweep_items`` unless given) whose strip is not written
     yet, readable ones only: an unreadable input is logged and dropped (it
@@ -392,7 +408,7 @@ def run_sweep(args, method: str, pipe, pending, logger: RunLogger, tp_group=None
     batch = args.batch_per_device if args.batch_per_device > 0 else auto_batch(method,
                                                                                pipe.device)
     size = pipe.config.image_size
-    saver = PipelinedSaver(size, logger, method, write)
+    saver = PipelinedSaver(size, logger, method, write, getattr(args, "profile_dir", None))
     common = (pipe, pending, batch, size, saver)
     try:
         if BatchedDirectInversionP2P.supports(method):

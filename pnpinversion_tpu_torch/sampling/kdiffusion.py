@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pnpinversion_tpu_torch.schedulers.ddim import DDIMSchedule
+from pnpinversion_tpu_torch.utils.observability import spanned
 
 F32 = np.float32
 
@@ -56,6 +57,7 @@ def get_ancestral_step(sigma_from, sigma_to) -> Tuple[float, float]:
     return float(sigma_down), float(sigma_up)
 
 
+@spanned("pnpi.edit.sample")
 def sample_euler_ancestral(denoise_fn: Callable[[torch.Tensor, float], torch.Tensor],
                            x: torch.Tensor, sigmas: np.ndarray,
                            noise_fn: Callable[[], torch.Tensor]) -> torch.Tensor:

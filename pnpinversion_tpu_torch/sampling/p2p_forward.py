@@ -25,6 +25,7 @@ from pnpinversion_tpu_torch.schedulers.ddim import (
     ddim_step,
     ddim_step_recon_guided,
 )
+from pnpinversion_tpu_torch.utils.observability import spanned
 
 
 def _start(control: BaseControl, unet: UNet, latent: torch.Tensor, N: int, B: int):
@@ -42,6 +43,7 @@ def _callback(control: BaseControl, latents: torch.Tensor, tensors, state, step:
     return out.reshape(latents.shape), state
 
 
+@spanned("pnpi.edit.sample")
 def guidance_forward(
     unet: UNet,
     schedule: DDIMSchedule,
@@ -74,6 +76,7 @@ def guidance_forward(
     return latents
 
 
+@spanned("pnpi.edit.sample")
 def fused_direct_inversion_edit(
     unet: UNet,
     schedule: DDIMSchedule,
@@ -109,6 +112,7 @@ def fused_direct_inversion_edit(
     return latents
 
 
+@spanned("pnpi.edit.sample")
 def fused_direct_inversion_edit_srcfree(
     unet: UNet,
     schedule: DDIMSchedule,
@@ -142,6 +146,7 @@ def fused_direct_inversion_edit_srcfree(
     return latents
 
 
+@spanned("pnpi.edit.sample")
 def guidance_forward_single_branch(
     unet: UNet,
     schedule: DDIMSchedule,
@@ -177,6 +182,7 @@ def _dilate(mask: torch.Tensor, radius: int) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(lead + (h, w, c))
 
 
+@spanned("pnpi.edit.sample")
 def proximal_guidance_forward(
     unet: UNet,
     schedule: DDIMSchedule,

@@ -125,7 +125,9 @@ def test_p2p_runner_matches_the_jax_runner(tmp_path, tiny, monkeypatch):
     runner.main(_args(data, out, method, "--rerun_exist_images", "--profile_dir",
                       str(trace_dir)))
     assert all(os.stat(p).st_mtime_ns > 10**9 for p in paths)
-    assert len(os.listdir(trace_dir)) == 1  # a torch.profiler trace of the first image
+    # a torch.profiler trace of the first image, and its program spans beside it
+    assert sorted(os.listdir(trace_dir)) == [f"spans_{os.getpid()}.json",
+                                             f"trace_{os.getpid()}.json"]
 
 
 TINY_CLIP = dict(image_size=16, patch_size=8, width=32, layers=2, heads=2, projection_dim=16)
